@@ -1,0 +1,113 @@
+"""Dispatch layer over the kernels.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
+goes to the hand-written CUDA kernel, which launches or raises — there is
+no fallback from the card to the plain version.
+
+Both kernels read a CSR over destination rows. :func:`to_csr` builds it
+from an arc list on the arcs' own device: it checks on the device that
+``edge_dst`` is sorted and stable-sorts ``(dst, src, w)`` when it is not
+(the padding contract lets weight-0 arcs point at any in-range row, so a
+caller may hand over unsorted arcs), then takes ``row_ptr`` with
+``searchsorted``. A GNN forward builds it once per graph and reuses it for
+every layer.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from . import csr_aggregate as _agg
+from . import fused_layer as _fused
+
+__all__ = ["Csr", "to_csr", "csr_aggregate", "fused_gcn_layer",
+           "inv_degree", "launch_counts", "reset_launch_counts"]
+
+
+class Csr(NamedTuple):
+    """Arcs sorted (stably) by destination, with row offsets."""
+    src: torch.Tensor       # [E] int32
+    dst: torch.Tensor       # [E] int32, non-decreasing
+    weight: torch.Tensor    # [E] f32
+    row_ptr: torch.Tensor   # [N+1] int32
+    num_nodes: int
+
+
+def to_csr(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+           edge_weight: torch.Tensor, num_nodes: int) -> Csr:
+    """Build the CSR of an arc list (see module docstring).
+
+    Raises ``ValueError`` for mismatched lengths or out-of-range ids: a
+    kernel would read out of bounds on them.
+    """
+    if not (edge_src.dim() == edge_dst.dim() == edge_weight.dim() == 1) or \
+            not (edge_src.shape == edge_dst.shape == edge_weight.shape):
+        raise ValueError(
+            f"edge_src/edge_dst/edge_weight must be 1-D of one length, got "
+            f"{tuple(edge_src.shape)}, {tuple(edge_dst.shape)}, "
+            f"{tuple(edge_weight.shape)}")
+    device = edge_dst.device
+    src = edge_src.to(device=device, dtype=torch.int32).contiguous()
+    dst = edge_dst.to(dtype=torch.int32).contiguous()
+    w = edge_weight.to(device=device, dtype=torch.float32).contiguous()
+    if dst.numel():
+        flags = torch.stack([
+            (dst[1:] >= dst[:-1]).all(),
+            (dst.min() >= 0) & (dst.max() < num_nodes),
+            (src.min() >= 0) & (src.max() < num_nodes)])
+        is_sorted, dst_ok, src_ok = flags.tolist()      # one host read
+        if not (dst_ok and src_ok):
+            raise ValueError(f"arc endpoints must lie in [0, {num_nodes})")
+        if not is_sorted:
+            order = torch.sort(dst, stable=True).indices
+            src, dst, w = src[order], dst[order], w[order]
+    rows = torch.arange(num_nodes + 1, dtype=torch.int32, device=device)
+    row_ptr = torch.searchsorted(dst, rows, out_int32=True)
+    return Csr(src=src, dst=dst, weight=w, row_ptr=row_ptr,
+               num_nodes=int(num_nodes))
+
+
+def _check_rows(h: torch.Tensor, csr: Csr) -> None:
+    if h.dim() != 2 or h.shape[0] != csr.num_nodes:
+        raise ValueError(f"h must be [{csr.num_nodes}, F], got "
+                         f"{tuple(h.shape)}")
+
+
+def csr_aggregate(h: torch.Tensor, csr: Csr,
+                  inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[d] = inv[d] * Σ_{dst[e]=d} w[e]·h[src[e]]`` — kernel A."""
+    _check_rows(h, csr)
+    if h.device.type == "cpu":
+        return _agg.plain(h, csr.src, csr.dst, csr.weight, csr.num_nodes,
+                          inv_scale)
+    return _agg.launch(h, csr.src, csr.row_ptr, csr.weight, inv_scale)
+
+
+def fused_gcn_layer(h: torch.Tensor, csr: Csr,
+                    inv_scale: Optional[torch.Tensor], w: torch.Tensor,
+                    b: torch.Tensor, activate: bool = True) -> torch.Tensor:
+    """``act((inv ⊙ A·h) @ w + b)`` in one launch — kernel B."""
+    _check_rows(h, csr)
+    if h.device.type == "cpu":
+        return _fused.plain(h, csr.src, csr.dst, csr.weight, inv_scale, w, b,
+                            activate=activate)
+    out, _ = _fused.launch(h, csr.src, csr.row_ptr, csr.weight, inv_scale,
+                           w, b, activate=activate)
+    return out
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {"csr_aggregate": _agg.launches,
+            "fused_gcn_layer": _fused.launches}
+
+
+def reset_launch_counts() -> None:
+    _agg.launches = 0
+    _fused.launches = 0
+
+
+def inv_degree(in_degree: torch.Tensor) -> torch.Tensor:
+    """``1 / max(in_degree, 1)`` in f32: the mean epilogue's scale."""
+    return 1.0 / torch.clamp(in_degree.float(), min=1.0)

@@ -1,0 +1,44 @@
+"""Plain PyTorch versions of the kernels: the CPU path and the oracles the
+CUDA kernels are held against on the card.
+
+Padding contract (the reference's): padding arcs carry weight 0 and may
+point at any in-range row; the zero weight is what makes them no-ops.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def csr_aggregate_ref(h: torch.Tensor, edge_src: torch.Tensor,
+                      edge_dst: torch.Tensor, edge_weight: torch.Tensor,
+                      num_nodes: int,
+                      inv_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``out[d] = inv[d] * sum_{e: dst[e]=d} w[e] * h[src[e]]`` (f32), as an
+    ``index_add_`` segment sum; ``inv_scale=None`` means 1."""
+    msgs = (h.index_select(0, edge_src.long()).float()
+            * edge_weight.float()[:, None])
+    out = torch.zeros(num_nodes, h.shape[1], dtype=torch.float32,
+                      device=h.device)
+    out.index_add_(0, edge_dst.long(), msgs)
+    if inv_scale is not None:
+        out = out * inv_scale.float()[:, None]
+    return out
+
+
+def fused_gcn_reference(h: torch.Tensor, edge_src: torch.Tensor,
+                        edge_dst: torch.Tensor, edge_weight: torch.Tensor,
+                        inv_scale: Optional[torch.Tensor], w: torch.Tensor,
+                        b: torch.Tensor, activate: bool = True
+                        ) -> torch.Tensor:
+    """``act((inv ⊙ Σ_e w[e]·h[src[e]]→dst[e]) @ W + b)``.
+
+    ``torch.relu``'s gradient at z == 0 is 0, the reference's convention
+    (``jax.nn.relu``), which matters for zero-degree rows under zero bias.
+    """
+    agg = csr_aggregate_ref(h, edge_src, edge_dst, edge_weight, h.shape[0],
+                            inv_scale)
+    z = agg @ w.float() + b.float()[None, :]
+    return torch.relu(z) if activate else z

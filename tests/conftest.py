@@ -102,3 +102,9 @@ try:
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; skips "
+                   "where torch.cuda.is_available() is false")
