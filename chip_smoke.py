@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,20 +8,45 @@ Phases, each fatal on failure:
 1. print the card (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time and register use;
-3. main path at ogbn-arxiv scale (169,343 nodes, 128 features, 40 classes):
-   Leiden-Fusion with k = 8 (repli), a 3-layer 128-wide GCN and a 256-wide
-   classifier with seeded weights, pooled table, bundle export and load,
-   ``warmup()``, then 2,000 Zipf queries with 10% unseen nodes. Every
-   known-node answer must equal the offline key, and both kernels must
+3. serving main path at ogbn-arxiv scale (169,343 nodes, 128 features, 40
+   classes): Leiden-Fusion with k = 8 (repli), a 3-layer 128-wide GCN and a
+   256-wide classifier with seeded weights, pooled table, bundle export and
+   load, ``warmup()``, then 2,000 Zipf queries with 10% unseen nodes. Every
+   known-node answer must equal the offline key, and kernels A and B must
    have launched during this run;
 4. checks: the inductive logits of one batch against the plain path on the
-   same batch; the whole pipeline on karate on the card against the plain
-   CPU path;
-5. each kernel against its plain version at the main path's shapes, with
+   same batch; the inference pipeline on karate on the card against the
+   plain CPU path;
+5. training main path, same configuration, through ``run_training``: 8 GCN
+   replicas trained locally for 60 epochs (dropout 0.3, lr 5e-3), the
+   classifier for 150, the trained bundle served with the same replay and
+   exact-match gate. Kernels A (backward) and B (forward) must have
+   launched during training, and the trained test accuracy must beat both
+   chance and the seeded run's;
+6. training on the card against the CPU path from the same initial
+   parameters with dropout 0 (karate, k = 4, 60 epochs; arxiv-like at
+   2,000 nodes, 20 epochs): per-epoch losses within 1e-4 and the pooled
+   table within 1e-3 (abs + rel), the parity gate of the port against the
+   reference: sums run in another order on the card and the difference
+   compounds through every AdamW step;
+7. gradients at the main path's largest partition: both kernels'
+   ``autograd.Function``s against autograd of the plain forward, and one
+   backward of the whole GCN with arc-weight gradients, the path of its
+   own that launches kernel C (main-path training keeps the arc weights
+   fixed, so its ``edge_dot`` launches are 0; the ``kernels`` line gives
+   this phase's count as ``launches_arc_weight_backward_phase``);
+8. each kernel against its plain version at the main path's shapes, with
    its time (CUDA events, median of 30), the plain version's time, a
    PyTorch library call's time where one computes the same function, and
    the bound: the larger of bytes moved over 3.35 TB/s and operations over
-   67 TFLOP/s (H100 SXM f32 without tensor cores, published peaks at 700 W).
+   67 TFLOP/s (H100 SXM f32 without tensor cores, published peaks at
+   700 W); and a profile of two training epochs (device time by kernel,
+   device busy share) and of one AdamW step (its launches).
+
+Kernels are held against their plain versions at 3e-5 (abs + rel). Where
+an output is a sum whose terms cancel (dot products, transposed sums, the
+gradients), "rel" is taken against the same sum of absolute terms, the
+scale of f32 rounding error, rather than against the result.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -44,6 +69,8 @@ TOL = dict(rtol=3e-5, atol=3e-5)
 ARXIV_SCALE = 169343 / 40000
 QUERIES = 2000
 MAX_NEIGHBORS = 32
+LOSS_TOL = 1e-4        # card vs CPU training, abs + rel
+TABLE_TOL = 1e-3
 
 
 def check(ok, what):
@@ -76,19 +103,277 @@ def bound_ms(nbytes, ops):
                                        else "operations")
 
 
-def max_err(out, ref):
-    """Max abs error; fails unless |out - ref| <= atol + rtol*|ref|."""
+def max_err(out, ref, scale=None, what="kernel"):
+    """Max abs error; fails unless |out - ref| <= atol + rtol*scale, with
+    ``scale`` = |ref| unless a sum of absolute terms is given."""
     import torch
-    check(bool(torch.isfinite(out).all()), "non-finite kernel output")
+    check(bool(torch.isfinite(out).all()), f"non-finite {what} output")
     diff = (out - ref).abs()
-    check(bool((diff <= TOL["atol"] + TOL["rtol"] * ref.abs()).all()),
-          f"kernel disagrees with its plain version: max abs err "
+    scale = ref.abs() if scale is None else scale
+    check(bool((diff <= TOL["atol"] + TOL["rtol"] * scale).all()),
+          f"{what} disagrees with its plain version: max abs err "
           f"{float(diff.max())}")
     return float(diff.max())
 
 
+def replay_trained_bundle(result, cfg, dev, label):
+    """Load the run's bundle, replay the Zipf workload, gate exact match.
+    Returns (replay row, batcher, workload, store)."""
+    import torch
+    from repro_torch.pipeline.datasets import graph_fingerprint
+    from repro_torch.serving.batcher import ContinuousBatcher
+    from repro_torch.serving.cache import LruNodeCache
+    from repro_torch.serving.replay import make_zipf_workload, run_replay
+    from repro_torch.serving.store import EmbeddingStore, classify
+    store = EmbeddingStore.load(
+        result.serving_path, device=dev,
+        expect_fingerprint=cfg.partitioner.fingerprint(),
+        expect_graph=graph_fingerprint(result.dataset.graph))
+    batcher = ContinuousBatcher(store, cache=LruNodeCache(512),
+                                max_batch=64, max_wait_ms=2.0,
+                                max_neighbors=MAX_NEIGHBORS)
+    workload = make_zipf_workload(store.n, num_queries=QUERIES,
+                                  unseen_frac=0.1,
+                                  max_neighbors=MAX_NEIGHBORS, seed=0)
+    row = run_replay(batcher, workload, verify=False)
+    torch.cuda.synchronize()
+    print(f"{label} replay: {json.dumps(row, sort_keys=True)}")
+    if row["label_mismatches"]:
+        ids = torch.as_tensor(row["mismatched_nodes"], device=dev)
+        top2 = classify(store.classifier,
+                        result.embeddings[ids]).topk(2).values
+        print(f"mismatched nodes {row['mismatched_nodes']}: offline logit "
+              f"margins {(top2[:, 0] - top2[:, 1]).tolist()}")
+    check(row["label_mismatches"] == 0,
+          f"{label}: {row['label_mismatches']} of {row['known_queries']} "
+          f"known-node answers differ from the offline key")
+    check(row["served_by_source"].get("degraded") == 1,
+          f"{label}: the zero-neighbour query did not degrade")
+    return row, batcher, workload, store
+
+
+def key_accuracy(result):
+    ds = result.dataset
+    return float((result.predictions[ds.test_mask]
+                  == ds.labels[ds.test_mask]).mean())
+
+
+def train_on_card_vs_cpu(dev):
+    """Phase 6: the training pipeline on the card against the CPU path."""
+    import numpy as np
+    from repro_torch.pipeline.pipeline import PipelineConfig, run_training
+    for name, kwargs, epochs in (("karate", {}, 60),
+                                 ("arxiv-like", {"n": 2000}, 20)):
+        cfg = PipelineConfig(dataset=name, k=4, dropout=0.0, epochs=epochs,
+                             classifier_epochs=0, dataset_kwargs=kwargs)
+        card, cpu = run_training(cfg, device=dev), \
+            run_training(cfg, device="cpu")
+        loss_err = float(np.abs(card.losses - cpu.losses).max())
+        table = card.embeddings.cpu()
+        table_err = float((table - cpu.embeddings).abs().max())
+        print(f"train card vs cpu [{name}, k=4, {epochs} epochs]: max abs "
+              f"loss err {loss_err:.3e}, table err {table_err:.3e}; loss "
+              f"epoch 0 {cpu.losses[0].mean():.4f} -> last "
+              f"{cpu.losses[-1].mean():.4f}")
+        check(np.allclose(card.losses, cpu.losses, rtol=LOSS_TOL,
+                          atol=LOSS_TOL),
+              f"{name}: per-epoch losses on the card disagree with the CPU")
+        check(bool(np.allclose(table.numpy(), cpu.embeddings.numpy(),
+                               rtol=TABLE_TOL, atol=TABLE_TOL)),
+              f"{name}: the trained table on the card disagrees with the CPU")
+
+
+def gradients_against_plain(tens, params, dev):
+    """Phase 7: both Functions' gradients and one whole-GCN backward with
+    arc-weight gradients, against autograd of the plain forward."""
+    import torch
+    from repro_torch.gnn.infer import partition_params
+    from repro_torch.gnn.model import GNNConfig, gnn_forward
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.tree import tree_map
+
+    p = int(torch.argmax((tens.edge_weight > 0).sum(dim=1)))
+    csr = tens.csrs[p]
+    n = csr.num_nodes
+    inv = ops.inv_degree(tens.in_degree[p])
+    h = tens.features[p]
+    lp = partition_params(params["body"]["layers"][1], p)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((n, lp["w"].shape[1]), generator=gen, device=dev)
+
+    def grads_pair(fn_mine, fn_plain, inputs, cot):
+        """(mine, plain, bound): gradients of <fn(inputs), cot>; the bound
+        is the plain gradient at |inputs| with |cot|, the sum of absolute
+        terms of every gradient entry."""
+        def run(fn, xs, c):
+            leaves = [x.detach().clone().requires_grad_() for x in xs]
+            return torch.autograd.grad((fn(*leaves) * c).sum(), leaves)
+        return (run(fn_mine, inputs, cot), run(fn_plain, inputs, cot),
+                run(fn_plain, [x.abs() for x in inputs], cot.abs()))
+
+    errs, kinks = {}, {}
+    names = ("dh", "dw", "dW", "db")
+    inputs = [h, csr.weight, lp["w"], lp["b"]]
+    for activate in (True, False):
+        def mine_fn(hh, ww, wm, bb):
+            return ops.fused_gcn_layer(hh, csr._replace(weight=ww), inv, wm,
+                                       bb, activate=activate)
+        # relu's derivative jumps at 0: where two forwards round a z next
+        # to 0 to opposite signs, both gradients are right and differ by a
+        # whole term. The plain path's index_add_ sums in no fixed order on
+        # the card, so its signs there can change from call to call; it
+        # takes the relu decisions of the kernel's own forward instead (the
+        # launch the Function makes, with need_agg)
+        on = (mine_fn(*[x.detach().requires_grad_() for x in inputs]) > 0
+              ).detach() if activate else None
+
+        def plain_fn(hh, ww, wm, bb):
+            z = plain.fused_gcn_reference(hh, csr.src, csr.dst, ww, inv, wm,
+                                          bb, activate=False)
+            return z * on if activate else z
+        if activate:
+            with torch.no_grad():
+                kinks["plain relu sign != kernel's"] = int(
+                    ((plain.fused_gcn_reference(h, csr.src, csr.dst,
+                                                csr.weight, inv, lp["w"],
+                                                lp["b"]) > 0) != on).sum())
+        mine, ref, bound = grads_pair(mine_fn, plain_fn, inputs, g)
+        for name, a, r, s in zip(names, mine, ref, bound):
+            errs[f"fused {name} activate={activate}"] = max_err(
+                a, r, s, f"fused layer {name}")
+    gh = torch.randn(h.shape, generator=gen, device=dev)
+    mine, ref, bound = grads_pair(
+        lambda hh, ww: ops.csr_aggregate(hh, csr._replace(weight=ww), inv),
+        lambda hh, ww: plain.csr_aggregate_ref(hh, csr.src, csr.dst, ww, n,
+                                               inv),
+        [h, csr.weight], gh)
+    for name, a, r, s in zip(names, mine, ref, bound):
+        errs[f"aggregate {name}"] = max_err(a, r, s, f"aggregate {name}")
+    print("gradients vs plain (max abs err): " + json.dumps(errs)
+          + f"; relu outputs straddling 0: {json.dumps(kinks)}")
+
+    # the path that launches kernel C: a whole GCN backward that asks for
+    # the arc weights' gradient (main-path training keeps them fixed)
+    cfg = GNNConfig(feature_dim=h.shape[1], hidden_dim=lp["w"].shape[1],
+                    embed_dim=params["body"]["layers"][-1]["w"].shape[-1],
+                    num_layers=len(params["body"]["layers"]))
+    body = partition_params(params["body"], p)
+    weight = csr.weight.detach().clone().requires_grad_()
+    cot = torch.randn((n, cfg.embed_dim), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    emb = gnn_forward(body, cfg, h, csr._replace(weight=weight),
+                      tens.in_degree[p], node_mask=tens.node_mask[p])
+    (dw,) = torch.autograd.grad(emb, weight, cot)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # the plain path takes its relu decisions from the kernels' forward
+    # (the same launches gnn_forward made), so a z rounded to opposite
+    # signs next to 0 does not pick another subgradient; run once as it is
+    # and once on absolute values, whose gradient is each entry's sum of
+    # absolute terms
+    mask = tens.node_mask[p][:, None]
+    h_k = h * mask
+    relu = []
+    with torch.no_grad():
+        for i, layer in enumerate(body["layers"]):
+            h_k = ops.fused_gcn_layer(h_k, csr, inv, layer["w"], layer["b"],
+                                      activate=i < cfg.num_layers - 1) * mask
+            relu.append(h_k > 0)
+
+    def plain_dw(hh, ww, layers, c):
+        ww = ww.detach().clone().requires_grad_()
+        x = hh * mask
+        for i, layer in enumerate(layers):
+            z = plain.fused_gcn_reference(x, csr.src, csr.dst, ww, inv,
+                                          layer["w"], layer["b"],
+                                          activate=False)
+            x = (z if i == cfg.num_layers - 1 else z * relu[i]) * mask
+        return torch.autograd.grad(x, ww, c)[0]
+    dw_ref = plain_dw(h, csr.weight, body["layers"], cot)
+    scale = plain_dw(h.abs(), csr.weight.abs(),
+                     [tree_map(torch.abs, layer) for layer in body["layers"]],
+                     cot.abs())
+    err = max_err(dw, dw_ref, scale, "arc-weight gradient")
+    print(f"arc-weight gradient of a {cfg.num_layers}-layer GCN: max abs "
+          f"err {err:.3e} (largest entry {float(dw_ref.abs().max()):.3e}); "
+          f"launches {json.dumps(launches)}")
+    check(launches["edge_dot"] > 0 and launches["csr_aggregate"] > 0,
+          f"the arc-weight backward did not launch kernels A and C: "
+          f"{launches}")
+    return launches["edge_dot"], p
+
+
+def profile_training(result, dev):
+    """Device time by kernel over two training epochs, and the launches of
+    one stacked AdamW step (``torch.profiler``, CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.gnn.train import stacked_train_step
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_map
+    tens, cfg = result.tensors, result.gnn
+    gens = [torch.Generator(device=dev).manual_seed(p)
+            for p in range(tens.k)]
+    params, opt = result.params, adamw_init(result.params, stacked=True)
+
+    def epoch():
+        return stacked_train_step(params, opt, tens, cfg, False, 5e-3, gens)
+    params, opt, _ = epoch()                 # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            params, opt, _ = epoch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = {"fused_gcn (fwd, B)": "fused_gcn_kernel",
+              "csr_aggregate (bwd transpose, A)": "csr_aggregate_kernel",
+              "edge_dot (C)": "edge_dot_kernel"}
+    gemm, other = "gemm (bwd dW, da; head)", "other (elementwise, reductions)"
+    split = {k: 0.0 for k in (*groups, gemm, other)}
+    for e in kernels:
+        key = next((k for k, v in groups.items() if v in e.name), None)
+        if key is None:
+            key = gemm if any(s in e.name.lower() for s in
+                              ("gemm", "cutlass", "xmma")) else other
+        split[key] += e.time_range.elapsed_us()
+    busy = sum(split.values())
+    print(f"profile, 2 epochs x {tens.k} partitions: wall "
+          f"{wall_us / 2e3:.3f} ms/epoch (profiler on), device busy "
+          f"{busy / 2e3:.3f} ms/epoch, idle share "
+          f"{1 - busy / wall_us:.3f}, {len(kernels) // 2} kernels/epoch")
+    print("profile device ms/epoch by kernel: " + json.dumps(
+        {k: round(v / 2e3, 4) for k, v in split.items()}))
+
+    grads = tree_map(lambda x: torch.full_like(x, 1e-3), params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        adamw_update(grads, opt, params, 5e-3)
+        torch.cuda.synchronize()
+    n_adamw = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"profile: one stacked AdamW step = {n_adamw} kernel launches")
+    return len(kernels) > 0
+
+
+def library_csr(rows, cols, vals, n):
+    """The live arcs (``vals != 0``) as a sorted, duplicate-free sparse CSR
+    matrix for a library call (weight-0 padding arcs are no-ops)."""
+    import torch
+    live = vals != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[live].long(), cols[live].long()]), vals[live],
+        (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
 def main():
     t_start = time.perf_counter()
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU (torch.cuda.is_available() is false)",
@@ -96,14 +381,12 @@ def main():
         return 2
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import edge_dot as kernel_c
     from repro_torch.kernels import fused_layer as kernel_b
-    from repro_torch.pipeline.datasets import graph_fingerprint
-    from repro_torch.pipeline.pipeline import PipelineConfig, run_inference
-    from repro_torch.serving.batcher import ContinuousBatcher
-    from repro_torch.serving.cache import LruNodeCache
+    from repro_torch.kernels import ref as plain
+    from repro_torch.pipeline.pipeline import (PipelineConfig, run_inference,
+                                               run_training)
     from repro_torch.serving.inductive import aggregate_and_head
-    from repro_torch.serving.replay import make_zipf_workload, run_replay
-    from repro_torch.serving.store import EmbeddingStore, classify
 
     # f32 products stay f32 (the reference's parity); the defaults, stated
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,88 +407,112 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check(all(_build.library_path(n).exists() for n in _build.SOURCES),
+          "a kernel library is missing after the build")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-", dir=ROOT) as tmp:
-        # -- 3. the main path ---------------------------------------------
+        # -- 3. the serving main path, seeded weights ---------------------
         cfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
-                             serving_dir=tmp,
+                             serving_dir=os.path.join(tmp, "seeded"),
                              dataset_kwargs={"scale": ARXIV_SCALE})
         ops.reset_launch_counts()
         result = run_inference(cfg, device=dev)
-        store = EmbeddingStore.load(
-            result.serving_path, device=dev,
-            expect_fingerprint=cfg.partitioner.fingerprint(),
-            expect_graph=graph_fingerprint(result.dataset.graph))
-        batcher = ContinuousBatcher(store, cache=LruNodeCache(512),
-                                    max_batch=64, max_wait_ms=2.0,
-                                    max_neighbors=MAX_NEIGHBORS)
-        workload = make_zipf_workload(store.n, num_queries=QUERIES,
-                                      unseen_frac=0.1,
-                                      max_neighbors=MAX_NEIGHBORS, seed=0)
-        row = run_replay(batcher, workload, verify=False)
-        torch.cuda.synchronize()
+        row, batcher, workload, store = replay_trained_bundle(
+            result, cfg, dev, "seeded")
         launches = ops.launch_counts()
 
-    t = result.timings
-    n, emb_dim = result.embeddings.shape
-    print(f"main path: n={n} k={result.batch.k} n_pad={result.batch.n_pad} "
-          f"e_pad={result.batch.e_pad} E={emb_dim}")
-    print("timings_s: " + " ".join(f"{k}={v:.3f}" for k, v in t.items()))
-    print(f"partition_s={t['partition']:.3f} embed_s={t['embed']:.4f} "
-          f"qps={row['throughput_qps']:.1f} p50_ms={row['p50_ms']:.3f} "
-          f"p99_ms={row['p99_ms']:.3f}")
-    print(f"replay: {json.dumps(row, sort_keys=True)}")
-    print(f"launches: {json.dumps(launches)}")
-    check((n, emb_dim) == (169343, 128), f"table shape {(n, emb_dim)}")
-    check(bool(torch.isfinite(result.embeddings).all()),
-          "non-finite embeddings")
-    if row["label_mismatches"]:
-        ids = torch.as_tensor(row["mismatched_nodes"], device=dev)
-        top2 = classify(store.classifier,
-                        result.embeddings[ids]).topk(2).values
-        print(f"mismatched nodes {row['mismatched_nodes']}: offline logit "
-              f"margins {(top2[:, 0] - top2[:, 1]).tolist()}")
-    check(row["label_mismatches"] == 0,
-          f"{row['label_mismatches']} of {row['known_queries']} known-node "
-          f"answers differ from the offline key")
-    check(row["served_by_source"].get("degraded") == 1,
-          "the zero-neighbour query did not degrade")
-    check(launches["fused_gcn_layer"] > 0 and launches["csr_aggregate"] > 0,
-          f"a kernel of the main path never launched: {launches}")
+        t = result.timings
+        n, emb_dim = result.embeddings.shape
+        seeded_acc = key_accuracy(result)
+        print(f"main path: n={n} k={result.batch.k} "
+              f"n_pad={result.batch.n_pad} e_pad={result.batch.e_pad} "
+              f"E={emb_dim}")
+        print("timings_s: " + " ".join(f"{k}={v:.3f}" for k, v in t.items()))
+        print(f"partition_s={t['partition']:.3f} embed_s={t['embed']:.4f} "
+              f"qps={row['throughput_qps']:.1f} p50_ms={row['p50_ms']:.3f} "
+              f"p99_ms={row['p99_ms']:.3f} seeded_test_acc={seeded_acc:.4f}")
+        print(f"launches: {json.dumps(launches)}")
+        check((n, emb_dim) == (169343, 128), f"table shape {(n, emb_dim)}")
+        check(bool(torch.isfinite(result.embeddings).all()),
+              "non-finite embeddings")
+        check(launches["fused_gcn_layer"] > 0
+              and launches["csr_aggregate"] > 0,
+              f"a kernel of the serving path never launched: {launches}")
 
-    # -- 4. checks against the plain path --------------------------------
-    unseen = [nb for node, nb in workload if node >= store.n][:64]
-    nb_emb, nb_mask, pids = batcher.inductive.prepare(unseen, 64)
-    pid_t = torch.as_tensor(pids, device=dev)
-    head_w, head_b = store.head_w[pid_t], store.head_b[pid_t]
-    agg, logits = aggregate_and_head(nb_emb, nb_mask, head_w, head_b)
-    p_agg, p_logits = aggregate_and_head(nb_emb.cpu(), nb_mask.cpu(),
-                                         head_w.cpu(), head_b.cpu())
-    err = (logits.cpu() - p_logits).abs().max().item()
-    print(f"inductive check: max abs logit err {err:.3e} "
-          f"(tol 1e-5 + 1e-5*|ref|)")
-    check(torch.allclose(logits.cpu(), p_logits, rtol=1e-5, atol=1e-5)
-          and torch.allclose(agg.cpu(), p_agg, rtol=1e-5, atol=1e-5),
-          f"inductive path disagrees with the plain path ({err})")
-    small = PipelineConfig(dataset="karate", k=4, hidden_dim=16,
-                           embed_dim=16, classifier_hidden=32)
-    on_card = run_inference(small, device=dev)
-    on_cpu = run_inference(small, device="cpu")
-    err = (on_card.embeddings.cpu() - on_cpu.embeddings).abs().max().item()
-    print(f"karate check: max abs table err {err:.3e} "
-          f"(tol 1e-4 + 1e-4*|ref|), answer keys equal: "
-          f"{bool((on_card.predictions == on_cpu.predictions).all())}")
-    check(torch.allclose(on_card.embeddings.cpu(), on_cpu.embeddings,
-                         rtol=1e-4, atol=1e-4)
-          and (on_card.predictions == on_cpu.predictions).all(),
-          "karate pipeline on the card disagrees with the CPU path")
+        # -- 4. checks against the plain path -----------------------------
+        unseen = [nb for node, nb in workload if node >= store.n][:64]
+        nb_emb, nb_mask, pids = batcher.inductive.prepare(unseen, 64)
+        pid_t = torch.as_tensor(pids, device=dev)
+        head_w, head_b = store.head_w[pid_t], store.head_b[pid_t]
+        agg, logits = aggregate_and_head(nb_emb, nb_mask, head_w, head_b)
+        p_agg, p_logits = aggregate_and_head(nb_emb.cpu(), nb_mask.cpu(),
+                                             head_w.cpu(), head_b.cpu())
+        err = (logits.cpu() - p_logits).abs().max().item()
+        print(f"inductive check: max abs logit err {err:.3e} "
+              f"(tol 1e-5 + 1e-5*|ref|)")
+        check(torch.allclose(logits.cpu(), p_logits, rtol=1e-5, atol=1e-5)
+              and torch.allclose(agg.cpu(), p_agg, rtol=1e-5, atol=1e-5),
+              f"inductive path disagrees with the plain path ({err})")
+        small = PipelineConfig(dataset="karate", k=4, hidden_dim=16,
+                               embed_dim=16, classifier_hidden=32)
+        on_card = run_inference(small, device=dev)
+        on_cpu = run_inference(small, device="cpu")
+        err = (on_card.embeddings.cpu() - on_cpu.embeddings).abs().max()
+        print(f"karate check: max abs table err {float(err):.3e} "
+              f"(tol 1e-4 + 1e-4*|ref|), answer keys equal: "
+              f"{bool((on_card.predictions == on_cpu.predictions).all())}")
+        check(torch.allclose(on_card.embeddings.cpu(), on_cpu.embeddings,
+                             rtol=1e-4, atol=1e-4)
+              and (on_card.predictions == on_cpu.predictions).all(),
+              "karate pipeline on the card disagrees with the CPU path")
 
-    # -- 5. kernels against their plain versions, timed -----------------
+        # -- 5. the training main path ------------------------------------
+        tcfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
+                              serving_dir=os.path.join(tmp, "trained"),
+                              dataset_kwargs={"scale": ARXIV_SCALE})
+        ops.reset_launch_counts()
+        trained = run_training(tcfg, device=dev, ds=result.dataset)
+        torch.cuda.synchronize()
+        train_launches = ops.launch_counts()
+        trow, _, _, _ = replay_trained_bundle(trained, tcfg, dev, "trained")
+        tt = trained.timings
+        acc = trained.accuracy
+        print("train timings_s: " + " ".join(f"{k}={v:.3f}"
+                                              for k, v in tt.items()))
+        print(f"train: ms_per_epoch={1e3 * tt['train_epochs'] / tcfg.epochs:.2f}"
+              f" (all {tcfg.k} partitions, {tcfg.epochs} epochs) "
+              f"classifier_s={tt['classifier']:.3f} "
+              f"accuracy train={acc['train']:.4f} val={acc['val']:.4f} "
+              f"test={acc['test']:.4f} (seeded run: {seeded_acc:.4f}, "
+              f"chance {1 / 40:.4f}); key test acc "
+              f"{key_accuracy(trained):.4f}")
+        print(f"train loss (mean over partitions): epoch 0 "
+              f"{trained.losses[0].mean():.4f}, last "
+              f"{trained.losses[-1].mean():.4f}")
+        print(f"train launches: {json.dumps(train_launches)}")
+        check(train_launches["fused_gcn_layer_need_agg"] > 0
+              and train_launches["csr_aggregate"] > 0,
+              f"a kernel of the training path never launched: "
+              f"{train_launches}")
+        check(bool(np.isfinite(trained.losses).all())
+              and bool(torch.isfinite(trained.embeddings).all()),
+              "non-finite training loss or embeddings")
+        check(np.isfinite(acc["test"]) and acc["test"] > 1 / 40
+              and acc["test"] > seeded_acc,
+              f"trained test accuracy {acc['test']} does not beat chance "
+              f"and the seeded run ({seeded_acc})")
+
+    # -- 6. training on the card against the CPU path -------------------
+    train_on_card_vs_cpu(dev)
+
+    # -- 7. gradients at the main path's largest partition ---------------
+    edge_launches, p = gradients_against_plain(trained.tensors,
+                                               trained.params, dev)
+
+    # -- 8. kernels against their plain versions, timed ------------------
     kernels = []
-    tens, params = result.tensors, result.params
-    p = int(torch.argmax((tens.edge_weight > 0).sum(dim=1)))   # most arcs
-    csr = ops.to_csr(tens.edge_src[p], tens.edge_dst[p],
-                     tens.edge_weight[p], result.batch.n_pad)
+    tens, params = trained.tensors, trained.params
+    csr = tens.csrs[p]
     h = tens.features[p].contiguous()
     inv = ops.inv_degree(tens.in_degree[p])
     w0 = params["body"]["layers"][0]["w"][p]
@@ -223,6 +530,8 @@ def main():
     bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn + f * fo + fo
                               + nn * fo),
                          2 * e_live * f + nn * f + 2 * nn * f * fo + nn * fo)
+    shape = {"N": nn, "F": f, "FO": fo, "E": e, "E_live": e_live,
+             "partition": p}
     kernels.append({
         "name": "fused_gcn_layer", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_layer.cu",
@@ -233,8 +542,98 @@ def main():
         "plain_ms": time_ms(lambda: kernel_b.plain(
             h, csr.src, csr.dst, csr.weight, inv, w0, b0)),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": {"N": nn, "F": f, "FO": fo, "E": e, "E_live": e_live}})
+        "shape": shape})
 
+    # kernel B with need_agg (the training forward): agg against plain
+    def plain_need_agg():
+        a = plain.csr_aggregate_ref(h, csr.src, csr.dst, csr.weight, nn, inv)
+        return plain.gcn_epilogue(a, w0, b0, True), a
+    out, agg = kernel_b.launch(h, csr.src, csr.row_ptr, csr.weight, inv, w0,
+                               b0, need_agg=True)
+    agg_ref = plain.csr_aggregate_ref(h, csr.src, csr.dst, csr.weight, nn,
+                                      inv)
+    err = max(max_err(out, kernel_b.plain(h, csr.src, csr.dst, csr.weight,
+                                          inv, w0, b0)),
+              max_err(agg, agg_ref, plain.csr_aggregate_ref(
+                  h.abs(), csr.src, csr.dst, csr.weight, nn, inv),
+                  "fused layer agg"))
+    bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn + f * fo + fo
+                              + nn * fo + nn * f),
+                         2 * e_live * f + nn * f + 2 * nn * f * fo + nn * fo)
+    kernels.append({
+        "name": "fused_gcn_layer_need_agg", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_layer.cu",
+        "replaces": "src/repro/kernels/fused_layer.py:79",
+        "launches": train_launches["fused_gcn_layer_need_agg"],
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel_b.launch(
+            h, csr.src, csr.row_ptr, csr.weight, inv, w0, b0,
+            need_agg=True)),
+        "plain_ms": time_ms(plain_need_agg),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": shape})
+
+    # kernel A over the reversed arcs (the backward's dh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn((nn, f), generator=gen, device=dev)
+    rev_w = (csr.weight * inv[csr.dst.long()])[csr.rev_perm].contiguous()
+    rev_dst = csr.src[csr.rev_perm].contiguous()
+    out = kernel_a.launch(g, csr.rev_src, csr.rev_row_ptr, rev_w)
+    err = max_err(out, kernel_a.plain(g, csr.rev_src, rev_dst, rev_w, nn),
+                  kernel_a.plain(g.abs(), csr.rev_src, rev_dst, rev_w, nn),
+                  "transposed aggregation")
+    rev_live = int((rev_w > 0).sum())
+    sp = library_csr(rev_dst, csr.rev_src, rev_w, nn)
+    check(torch.allclose(torch.sparse.mm(sp, g), out, rtol=1e-3, atol=1e-3),
+          "torch.sparse.mm does not compute the transposed aggregation")
+    bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn * f),
+                         2 * rev_live * f)
+    kernels.append({
+        "name": "csr_aggregate_transpose", "route": "cuda",
+        "source": "src/repro_torch/csrc/csr_aggregate.cu",
+        "replaces": "src/repro/kernels/csr_aggregate.py:148",
+        "launches": train_launches["csr_aggregate"], "max_abs_err": err,
+        "ms": time_ms(lambda: kernel_a.launch(g, csr.rev_src,
+                                              csr.rev_row_ptr, rev_w)),
+        "plain_ms": time_ms(lambda: kernel_a.plain(g, csr.rev_src, rev_dst,
+                                                   rev_w, nn)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(sp, g)),
+        "shape": {**shape, "rev_row_max": int(
+            (csr.rev_row_ptr[1:] - csr.rev_row_ptr[:-1]).max())}})
+
+    # kernel C: the arc-weight gradient
+    out = kernel_c.launch(h, g, csr.src, csr.dst, inv)
+    err = max_err(out, kernel_c.plain(h, g, csr.src, csr.dst, inv),
+                  kernel_c.plain(h.abs(), g.abs(), csr.src, csr.dst, inv),
+                  "edge dot")
+    sp_c = library_csr(csr.dst, csr.src, csr.weight, nn)
+    g_scaled = g * inv[:, None]
+    h_t = h.t()
+    lib = torch.sparse.sampled_addmm(sp_c, g_scaled, h_t, beta=0.0)
+    lib_dst = torch.repeat_interleave(
+        torch.arange(nn, device=dev), sp_c.crow_indices().diff())
+    check(torch.allclose(lib.values(), kernel_c.plain(
+        h, g, sp_c.col_indices(), lib_dst, inv), rtol=1e-3, atol=1e-3),
+          "sampled_addmm does not compute the edge dot")
+    bound, by = bound_ms(4 * (2 * nn * f + 3 * e + nn), 2 * e * f)
+    kernels.append({
+        "name": "edge_dot", "route": "cuda",
+        "source": "src/repro_torch/csrc/edge_dot.cu",
+        "replaces": "src/repro/kernels/csr_aggregate.py:190",
+        "launches": train_launches["edge_dot"],
+        "launches_arc_weight_backward_phase": edge_launches,
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel_c.launch(h, g, csr.src, csr.dst, inv)),
+        "plain_ms": time_ms(lambda: kernel_c.plain(h, g, csr.src, csr.dst,
+                                                   inv)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+            sp_c, g_scaled, h_t, beta=0.0)),
+        "shape": {"N": nn, "F": f, "E": e, "E_live": e_live,
+                  "partition": p}})
+
+    # kernel A at the serving path's inductive buckets
     buckets = row["inductive_buckets"]
     errs, times = [], {}
     for b in (1, 2, 4, 8, 16, 32, 64):
@@ -275,6 +674,26 @@ def main():
         "library_ms": times[b]["library_ms"],
         "shape": {"bucket": b, "N": rows, "F": emb_dim, "E": arcs,
                   "E_live": times[b]["live"]}})
+
+    # per partition: the weight-0 padding arcs all sit in one row (the
+    # assembly parks them at row n_pad-1, source 0), which one warp walks
+    per_part = []
+    for q in range(tens.k):
+        c = tens.csrs[q]
+        hq, invq = tens.features[q], ops.inv_degree(tens.in_degree[q])
+        rw = (c.weight * invq[c.dst.long()])[c.rev_perm].contiguous()
+        per_part.append({
+            "p": q, "pad_arcs": int((c.weight == 0).sum()),
+            "row_max": int(c.row_ptr.diff().max()),
+            "rev_row_max": int(c.rev_row_ptr.diff().max()),
+            "fused_ms": round(time_ms(lambda: kernel_b.launch(
+                hq, c.src, c.row_ptr, c.weight, invq, w0, b0,
+                need_agg=True), iters=5, warmup=1), 4),
+            "transpose_ms": round(time_ms(lambda: kernel_a.launch(
+                hq, c.rev_src, c.rev_row_ptr, rw), iters=5, warmup=1), 4)})
+    print("per partition: " + json.dumps(per_part))
+
+    check(profile_training(trained, dev), "the profiler saw no kernels")
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -10,15 +10,24 @@ subgraph, padded to one static shape so the k subgraphs stack:
     ``edge_dst`` sorted;
   - ``owned_mask`` is True for nodes the partition owns (embedding rows);
     halo replicas appear in Repli batches with ``owned=False``.
+
+It also holds the model-integration step that averages the k trained
+partition models (``average_partition_params``, ``integrate_models``), on
+stacked parameter tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
 
 from .graph import Graph
+
+INTEGRATION_KINDS = ("none", "model_avg", "ensemble")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +123,47 @@ def build_partition_batch(g: Graph, labels: np.ndarray, scheme: str = "inner",
                           owned_mask=owned_mask, edge_src=edge_src,
                           edge_dst=edge_dst, edge_weight=edge_weight,
                           in_degree=in_degree, n_pad=n_pad, e_pad=e_pad)
+
+
+def average_partition_params(params: Any,
+                             weights: Optional[np.ndarray] = None) -> Any:
+    """Parameter-average k stacked partition models.
+
+    Every leaf carries a leading partition axis of size k. Returns a tree of
+    the same shapes: the (optionally ``weights``-weighted) mean over that
+    axis, broadcast back to all k rows, so it drops into every
+    per-partition function unchanged. Averaging k equal replicas is a fixed
+    point."""
+    if weights is None:
+        return tree_map(lambda x: x.float().mean(dim=0).expand_as(x)
+                        .to(x.dtype).contiguous(), params)
+    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32)
+    if w.dim() != 1:
+        raise ValueError(f"weights must be 1-D, got shape {tuple(w.shape)}")
+    w = w / torch.clamp(w.sum(), min=1e-12)
+
+    def wavg(x):
+        if w.shape[0] != x.shape[0]:
+            raise ValueError(f"weights length {w.shape[0]} != partition "
+                             f"axis {x.shape[0]}")
+        wb = w.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+        return (x.float() * wb).sum(dim=0).expand_as(x).to(x.dtype) \
+            .contiguous()
+    return tree_map(wavg, params)
+
+
+def integrate_models(params: Any, kind: str = "model_avg",
+                     weights: Optional[np.ndarray] = None) -> Any:
+    """The parameter-level integration step: ``"none"`` returns ``params``,
+    ``"model_avg"`` averages them. ``"ensemble"`` averages embeddings, not
+    parameters, and is refused here (``gnn.train.apply_integration``)."""
+    if kind not in INTEGRATION_KINDS:
+        raise ValueError(f"integration kind must be one of "
+                         f"{INTEGRATION_KINDS}, got {kind!r}")
+    if kind == "ensemble":
+        raise ValueError("ensemble integration is prediction-level; use "
+                         "repro_torch.gnn.train.apply_integration with the "
+                         "mode's forward")
+    if kind == "none":
+        return params
+    return average_partition_params(params, weights)

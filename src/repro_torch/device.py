@@ -20,3 +20,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "repro_torch runs on a CUDA GPU by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

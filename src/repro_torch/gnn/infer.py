@@ -1,6 +1,7 @@
-"""Per-partition embedding inference: stacked partition tensors, seeded
-parameters for the k replicas, the per-partition forward, pooling of the
-owned rows into one table, and the bridge from the reference's parameters.
+"""Per-partition tensors and embedding inference: the stacked partition
+tensors with one prebuilt CSR per partition, seeded parameters for the k
+replicas, the per-partition forward, pooling of the owned rows into one
+table, and the bridge from the reference's parameters.
 
 Layouts match the reference package at these public functions: stacked
 parameters with a leading axis k, embeddings ``[k, N_pad, E]``, the pooled
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +27,12 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class PartitionTensors:
-    """Stacked per-partition inference tensors on one device, axis 0 = k."""
+    """Stacked per-partition tensors on one device, axis 0 = k, and each
+    partition's CSR (forward and reversed arcs), built once and shared by
+    every layer, epoch and embedding pass."""
     features: torch.Tensor      # [k, N_pad, F] f32, zero on padded rows
+    labels: torch.Tensor        # [k, N_pad] int64 or [k, N_pad, T] f32
+    train_mask: torch.Tensor    # [k, N_pad] f32 (owned & train & valid)
     edge_src: torch.Tensor      # [k, E_pad] int32
     edge_dst: torch.Tensor      # [k, E_pad] int32, sorted per partition
     edge_weight: torch.Tensor   # [k, E_pad] f32
@@ -35,6 +40,7 @@ class PartitionTensors:
     node_mask: torch.Tensor     # [k, N_pad] f32
     owned_mask: torch.Tensor    # [k, N_pad] bool
     node_ids: torch.Tensor      # [k, N_pad] int64, -1 = padding
+    csrs: Tuple[ops.Csr, ...]   # one per partition
 
     @property
     def k(self) -> int:
@@ -42,26 +48,41 @@ class PartitionTensors:
 
 
 def gather_partition_tensors(ds: NodeDataset, batch: PartitionBatch,
-                             device: DeviceLike = "cuda"
+                             device: DeviceLike = "cuda",
+                             only: Optional[int] = None
                              ) -> PartitionTensors:
-    """Gather each partition's node features and move the batch to
-    ``device``."""
+    """Gather each partition's node features, labels and training mask,
+    move the batch to ``device`` and build every partition's CSR there.
+
+    ``only=p`` gathers partition ``p`` alone (``k`` = 1), for training one
+    partition at a time."""
     device = resolve_device(device)
-    ids = np.maximum(batch.node_ids, 0)
-    feats = ds.features[ids] * batch.node_mask[..., None]
+    sel = slice(None) if only is None else slice(only, only + 1)
+    node_ids, node_mask = batch.node_ids[sel], batch.node_mask[sel]
+    owned_mask = batch.owned_mask[sel]
+    ids = np.maximum(node_ids, 0)
+    feats = ds.features[ids] * node_mask[..., None]
+    labels = ds.labels[ids]
+    train = ds.train_mask[ids] & owned_mask & node_mask
 
     def dev(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x)).to(device=device,
                                                            dtype=dtype)
+    edge_src = dev(batch.edge_src[sel], torch.int32)
+    edge_dst = dev(batch.edge_dst[sel], torch.int32)
+    edge_weight = dev(batch.edge_weight[sel], torch.float32)
     return PartitionTensors(
         features=dev(feats, torch.float32),
-        edge_src=dev(batch.edge_src, torch.int32),
-        edge_dst=dev(batch.edge_dst, torch.int32),
-        edge_weight=dev(batch.edge_weight, torch.float32),
-        in_degree=dev(batch.in_degree, torch.float32),
-        node_mask=dev(batch.node_mask, torch.float32),
-        owned_mask=dev(batch.owned_mask, torch.bool),
-        node_ids=dev(batch.node_ids, torch.int64))
+        labels=dev(labels, torch.float32 if ds.multilabel else torch.int64),
+        train_mask=dev(train, torch.float32),
+        edge_src=edge_src, edge_dst=edge_dst, edge_weight=edge_weight,
+        in_degree=dev(batch.in_degree[sel], torch.float32),
+        node_mask=dev(node_mask, torch.float32),
+        owned_mask=dev(owned_mask, torch.bool),
+        node_ids=dev(node_ids, torch.int64),
+        csrs=tuple(ops.to_csr(edge_src[p], edge_dst[p], edge_weight[p],
+                              batch.n_pad)
+                   for p in range(edge_src.shape[0])))
 
 
 def init_partition_models(cfg: GNNConfig, num_classes: int, k: int,
@@ -118,25 +139,23 @@ def partition_params(params: Params, p: int) -> Params:
 @torch.no_grad()
 def compute_embeddings(params: Params, cfg: GNNConfig,
                        tensors: PartitionTensors) -> torch.Tensor:
-    """Every partition's GNN body on its own subgraph: ``[k, N_pad, E]``.
-
-    A loop over the k partitions; each builds its CSR once and runs every
-    layer on it."""
+    """Every partition's GNN body on its own subgraph: ``[k, N_pad, E]``,
+    a loop over the k partitions on their prebuilt CSRs."""
     k, n_pad = tensors.k, tensors.features.shape[1]
     out = torch.empty((k, n_pad, cfg.embed_dim), dtype=torch.float32,
                       device=tensors.features.device)
     for p in range(k):
-        csr = ops.to_csr(tensors.edge_src[p], tensors.edge_dst[p],
-                         tensors.edge_weight[p], n_pad)
         out[p] = gnn_forward(partition_params(params["body"], p), cfg,
-                             tensors.features[p], csr, tensors.in_degree[p],
+                             tensors.features[p], tensors.csrs[p],
+                             tensors.in_degree[p],
                              node_mask=tensors.node_mask[p])
     return out
 
 
 def pool_embeddings(emb: torch.Tensor, tensors: PartitionTensors,
                     n: int) -> torch.Tensor:
-    """Scatter owned-node embeddings back into one ``[n, E]`` table."""
+    """Scatter owned-node embeddings back into one ``[n, E]`` table (only
+    ``tensors.owned_mask`` and ``tensors.node_ids`` are read)."""
     out = torch.zeros((n, emb.shape[-1]), dtype=torch.float32,
                       device=emb.device)
     for p in range(emb.shape[0]):

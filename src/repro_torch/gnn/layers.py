@@ -3,7 +3,10 @@
 The aggregation runs through :mod:`repro_torch.kernels.ops`: on the card
 ``gcn_layer`` is one launch of the fused-layer kernel (kernel B) and
 ``aggregate_mean`` one launch of the aggregation kernel (kernel A); on the
-CPU both take the kernels' plain PyTorch versions.
+CPU both take the kernels' plain PyTorch versions. Both are differentiable
+through the kernels' ``autograd.Function``s (backward on kernel A over the
+reversed arcs and kernel C); SAGE's self term and relu are plain autograd,
+as in the reference.
 """
 from __future__ import annotations
 

@@ -1,0 +1,270 @@
+"""Local training, the paper's scheme: k GNN replicas, one per partition,
+each trained on its own subgraph with no communication; then the MLP
+classifier on the pooled embeddings.
+
+The reference vmaps one partition's AdamW step over the k partitions. Here
+the k partitions are a loop inside each epoch, which is the same math,
+since partitions never interact: the parameters stay stacked ``[k, ...]``,
+each partition's loss is differentiated with respect to its own slice, and
+one stacked AdamW step, which clips and counts steps per partition,
+updates all k. The ``sequential=True`` path (the reference's low-memory
+path) keeps one partition's tensors on the device at a time and swaps the
+loops: partition p runs all its epochs before p+1 starts.
+
+Dropout masks come from one generator per partition, seeded from
+``(seed, p)``, so the two loop orders draw the same masks.
+"""
+from __future__ import annotations
+
+import time
+import types
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import (NodeDataset, PartitionBatch,
+                              average_partition_params)
+from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.optim import OptState, adamw_init, adamw_update
+from repro_torch.tree import tree_leaves, tree_map
+
+from .infer import (Params, PartitionTensors, compute_embeddings,
+                    gather_partition_tensors, init_partition_models,
+                    partition_params, pool_embeddings)
+from .model import (GNNConfig, gnn_forward, head_logits, init_mlp,
+                    mlp_forward, sigmoid_bce, softmax_xent)
+
+__all__ = ["LocalTraining", "dropout_generators", "partition_loss",
+           "local_train_step", "stacked_train_step", "train_local", "apply_integration",
+           "train_classifier", "mean_rocauc"]
+
+
+class LocalTraining(NamedTuple):
+    params: Params              # stacked [k, ...], after integration
+    embeddings: torch.Tensor    # [n, E] pooled table
+    losses: np.ndarray          # [epochs, k] loss of every partition's step
+    seconds: Dict[str, float]   # "epochs" (the loop), "embed" (+ pooling)
+
+
+def dropout_generators(seed: int, k: int, device: torch.device
+                       ) -> List[torch.Generator]:
+    """One generator per partition on ``device``, seeded from
+    ``(seed, p)``."""
+    seeds = np.random.SeedSequence(seed).spawn(k)
+    return [torch.Generator(device=device).manual_seed(
+        int(s.generate_state(1, dtype=np.uint64)[0])) for s in seeds]
+
+
+def partition_loss(params: Params, cfg: GNNConfig, tensors: PartitionTensors,
+                   p: int, multilabel: bool,
+                   gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Partition ``p``'s training loss under its own (unstacked) model."""
+    emb = gnn_forward(params["body"], cfg, tensors.features[p],
+                      tensors.csrs[p], tensors.in_degree[p],
+                      node_mask=tensors.node_mask[p], dropout_gen=gen)
+    logits = head_logits(params["head"], emb)
+    loss_fn = sigmoid_bce if multilabel else softmax_xent
+    return loss_fn(logits, tensors.labels[p], tensors.train_mask[p])
+
+
+def _loss_and_grads(loss_fn: Callable[[Params], torch.Tensor],
+                    params: Params) -> Tuple[torch.Tensor, Params]:
+    """``loss_fn(params)`` and its gradient tree; ``params`` stay as they
+    are (the gradient is taken with respect to detached copies)."""
+    params = tree_map(lambda x: x.detach().requires_grad_(), params)
+    loss = loss_fn(params)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def local_train_step(params: Params, opt: OptState,
+                     tensors: PartitionTensors, p: int, cfg: GNNConfig,
+                     multilabel: bool, lr: float,
+                     gen: Optional[torch.Generator] = None
+                     ) -> Tuple[Params, OptState, torch.Tensor]:
+    """One AdamW step of partition ``p``'s model (unstacked parameters and
+    state): the counterpart of the reference's single-partition step.
+    Returns ``(params, opt, loss)``."""
+    loss, grads = _loss_and_grads(
+        lambda pp: partition_loss(pp, cfg, tensors, p, multilabel, gen),
+        params)
+    params, opt = adamw_update(grads, opt, params, lr, weight_decay=0.0)
+    return params, opt, loss
+
+
+def stacked_train_step(params: Params, opt: OptState, tensors: PartitionTensors,
+                   cfg: GNNConfig, multilabel: bool, lr: float,
+                   gens: List[Optional[torch.Generator]]
+                   ) -> Tuple[Params, OptState, torch.Tensor]:
+    """One AdamW step of all k partitions (stacked parameters and state):
+    the counterpart of the reference's vmapped step. Per-partition
+    gradients, then one stacked update that clips and counts steps per
+    partition. Returns ``(params, opt, losses [k])``."""
+    losses, grads = [], []
+    for p in range(tensors.k):
+        loss, g = _loss_and_grads(
+            lambda pp: partition_loss(pp, cfg, tensors, p, multilabel,
+                                      gens[p]),
+            partition_params(params, p))
+        losses.append(loss)
+        grads.append(g)
+    grads = tree_map(lambda *gs: torch.stack(gs), *grads)
+    params, opt = adamw_update(grads, opt, params, lr, weight_decay=0.0)
+    return params, opt, torch.stack(losses)
+
+
+def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
+                epochs: int = 60, lr: float = 1e-2, seed: int = 0,
+                integrate: str = "none", sequential: bool = False,
+                device: DeviceLike = "cuda", params: Optional[Params] = None,
+                tensors: Optional[PartitionTensors] = None) -> LocalTraining:
+    """The paper's local training; returns the trained (and integrated)
+    stacked parameters, the pooled ``[n, E]`` table and every step's loss.
+
+    ``params`` defaults to :func:`init_partition_models` seeded with
+    ``seed``; ``tensors`` (the vmapped path) to the batch gathered onto
+    ``device``. ``sequential=True`` gathers one partition at a time
+    instead; the trained parameters are the same."""
+    device = resolve_device(device)
+    k = batch.k
+    if params is None:
+        params = init_partition_models(cfg, ds.num_classes, k,
+                                       torch.Generator().manual_seed(seed),
+                                       device)
+    gens = dropout_generators(seed, k, device)
+    losses = torch.empty((epochs, k), dtype=torch.float32, device=device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    if sequential:
+        def one(p):
+            return gather_partition_tensors(ds, batch, device, only=p)
+        trained = []
+        for p in range(k):
+            t_p = one(p)
+            params_p = partition_params(params, p)
+            opt = adamw_init(params_p)
+            for e in range(epochs):
+                params_p, opt, losses[e, p] = local_train_step(
+                    params_p, opt, t_p, 0, cfg, ds.multilabel, lr, gens[p])
+            trained.append(params_p)
+            del t_p
+        params = tree_map(lambda *xs: torch.stack(xs), *trained)
+
+        def emb_fn(ps):
+            return torch.cat([compute_embeddings(
+                tree_map(lambda x: x[p:p + 1], ps), cfg, one(p))
+                for p in range(k)])
+        owned = types.SimpleNamespace(
+            owned_mask=torch.as_tensor(batch.owned_mask, device=device),
+            node_ids=torch.as_tensor(batch.node_ids.astype(np.int64),
+                                     device=device))
+    else:
+        if tensors is None:
+            tensors = gather_partition_tensors(ds, batch, device)
+        opt = adamw_init(params, stacked=True)
+        for e in range(epochs):
+            params, opt, losses[e] = stacked_train_step(
+                params, opt, tensors, cfg, ds.multilabel, lr, gens)
+
+        def emb_fn(ps):
+            return compute_embeddings(ps, cfg, tensors)
+        owned = tensors
+    synchronize(device)
+    t1 = time.perf_counter()
+    params, emb = apply_integration(params, integrate, emb_fn, k)
+    table = pool_embeddings(emb, owned, ds.graph.n)
+    synchronize(device)
+    return LocalTraining(params=params, embeddings=table,
+                         losses=losses.cpu().numpy(),
+                         seconds={"epochs": t1 - t0,
+                                  "embed": time.perf_counter() - t1})
+
+
+def apply_integration(params: Params, integrate: Optional[str],
+                      emb_fn: Callable[[Params], torch.Tensor], k: int
+                      ) -> Tuple[Params, torch.Tensor]:
+    """Integrate the k partition models before embedding assembly.
+
+    ``emb_fn(params) -> [k, N_pad, E]`` is the mode's embedding forward.
+    ``"none"`` keeps the k models; ``"model_avg"`` parameter-averages them
+    and embeds with the average everywhere; ``"ensemble"`` embeds each
+    subgraph with all k models and averages the embeddings."""
+    if integrate in (None, "none"):
+        return params, emb_fn(params)
+    if integrate == "model_avg":
+        params = average_partition_params(params)
+        return params, emb_fn(params)
+    if integrate == "ensemble":
+        acc = None
+        for m in range(k):
+            pm = tree_map(lambda x: x[m:m + 1].expand_as(x), params)
+            emb = emb_fn(pm)
+            acc = emb if acc is None else acc + emb
+        return params, acc / float(k)
+    raise ValueError(
+        f"integrate must be none|model_avg|ensemble, got {integrate!r}")
+
+
+def train_classifier(ds: NodeDataset, embeddings: torch.Tensor,
+                     hidden: int = 256, epochs: int = 150, lr: float = 1e-2,
+                     seed: int = 0, params: Optional[Params] = None
+                     ) -> Tuple[Dict[str, float], Params]:
+    """Train the MLP on the frozen pooled table (full batch, AdamW) and
+    report train/val/test accuracy (mean ROC-AUC for multilabel data).
+
+    ``params`` defaults to :func:`init_mlp` seeded with ``seed``. Returns
+    ``(metrics, trained params)``."""
+    device = embeddings.device
+    if params is None:
+        params = init_mlp(torch.Generator().manual_seed(seed),
+                          embeddings.shape[1], hidden, ds.num_classes,
+                          device)
+    opt = adamw_init(params)
+    x = embeddings.float()
+    y = torch.as_tensor(ds.labels, device=device,
+                        dtype=torch.float32 if ds.multilabel
+                        else torch.int64)
+    tr = torch.as_tensor(ds.train_mask, dtype=torch.float32, device=device)
+    loss_fn = sigmoid_bce if ds.multilabel else softmax_xent
+    for _ in range(epochs):
+        _, grads = _loss_and_grads(
+            lambda p: loss_fn(mlp_forward(p, x), y, tr), params)
+        params, opt = adamw_update(grads, opt, params, lr)
+    with torch.no_grad():
+        logits = mlp_forward(params, x).cpu().numpy()
+    out = {}
+    for split, mask in (("train", ds.train_mask), ("val", ds.val_mask),
+                        ("test", ds.test_mask)):
+        if ds.multilabel:
+            out[split] = float(mean_rocauc(ds.labels[mask], logits[mask]))
+        else:
+            pred = logits[mask].argmax(-1)
+            out[split] = float((pred == ds.labels[mask]).mean())
+    return out, params
+
+
+def mean_rocauc(y: np.ndarray, score: np.ndarray) -> float:
+    """Mean ROC-AUC over tasks (rank statistic, ties averaged)."""
+    aucs = []
+    for t in range(y.shape[1]):
+        yt, st = y[:, t], score[:, t]
+        pos = yt > 0.5
+        n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+        if n_pos == 0 or n_neg == 0:
+            continue
+        order = np.argsort(st, kind="mergesort")
+        ranks = np.empty_like(order, dtype=np.float64)
+        ranks[order] = np.arange(1, len(st) + 1)
+        sorted_s = st[order]
+        i = 0
+        while i < len(st):
+            j = i
+            while j + 1 < len(st) and sorted_s[j + 1] == sorted_s[i]:
+                j += 1
+            if j > i:
+                ranks[order[i:j + 1]] = (i + j + 2) / 2.0
+            i = j + 1
+        aucs.append((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                    / (n_pos * n_neg))
+    return float(np.mean(aucs)) if aucs else 0.5

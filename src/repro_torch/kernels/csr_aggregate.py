@@ -3,9 +3,13 @@
 ``out[d] = inv[d] * sum_{e in row d} w[e] * h[src[e]]`` over a CSR whose
 rows are the destination nodes. The kernel is ``csrc/csr_aggregate.cu``;
 its plain version is :func:`repro_torch.kernels.ref.csr_aggregate_ref`
-(re-exported here as ``plain``). :mod:`repro_torch.kernels.ops` builds the
-CSR and dispatches: CPU tensors go to the plain version, CUDA tensors to
-:func:`launch`.
+(re-exported here as ``plain``). :func:`aggregate` dispatches: CPU tensors
+go to the plain version, CUDA tensors to :func:`launch`.
+
+:class:`AggregateFn` is the reference's custom VJP (``_aggregate_diff``):
+``dh`` is this same kernel over the reversed arcs (:func:`transpose`),
+``dw`` is kernel C (:mod:`repro_torch.kernels.edge_dot`); ``inv_scale``
+and the arcs get no gradient.
 """
 from __future__ import annotations
 
@@ -15,9 +19,12 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._build import check_tensor
+from .edge_dot import edge_dot
 from .ref import csr_aggregate_ref as plain
 
-__all__ = ["launch", "plain", "launches", "check_tensor"]
+__all__ = ["AggregateFn", "aggregate", "transpose", "launch", "plain",
+           "launches"]
 
 #: Kernel launches since the last reset (see ``ops.reset_launch_counts``).
 launches = 0
@@ -36,20 +43,6 @@ def _lib():
         lib.csr_aggregate_error.restype = ctypes.c_char_p
         _lib_cache = lib
     return _lib_cache
-
-
-def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                 shape: tuple, device: torch.device) -> None:
-    """Raise ``ValueError`` unless ``t`` is what a kernel takes."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
@@ -89,3 +82,52 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
                            + lib.csr_aggregate_error(err).decode())
     launches += 1
     return out
+
+
+def aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+              row_ptr: torch.Tensor, weight: torch.Tensor,
+              inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if h.device.type == "cpu":
+        return plain(h, src, dst, weight, h.shape[0], inv_scale)
+    return launch(h, src, row_ptr, weight, inv_scale)
+
+
+def transpose(g: torch.Tensor, csr, weight: torch.Tensor,
+              inv_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """``dh = Aᵀ·diag(inv)·g``: the aggregation over the reversed arcs of
+    ``csr`` (rows are source nodes), with the normalisation folded into the
+    reversed weights ``w[e]·inv[dst[e]]`` and no epilogue.
+
+    The reversed weights come from ``weight`` as it is now, never from a
+    cache, as the reference's ``_aggregate_diff_bwd`` computes them."""
+    w = weight if inv_scale is None else \
+        weight * inv_scale.index_select(0, csr.dst.long())
+    rev_w = w.index_select(0, csr.rev_perm).contiguous()
+    return aggregate(g.contiguous(), csr.rev_src, csr.rev_dst,
+                     csr.rev_row_ptr, rev_w)
+
+
+class AggregateFn(torch.autograd.Function):
+    """``out = inv ⊙ A·h`` (kernel A) with the reference's VJP.
+
+    ``weight`` is the CSR-ordered arc weight, passed on its own so autograd
+    sees it; ``csr`` carries the index arrays (forward and reversed) and
+    ``inv_scale`` gets no gradient, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, h, weight, csr, inv_scale):
+        ctx.csr = csr
+        ctx.save_for_backward(h, weight, inv_scale)
+        return aggregate(h, csr.src, csr.dst, csr.row_ptr, weight, inv_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, weight, inv = ctx.saved_tensors
+        csr = ctx.csr
+        g = g.float().contiguous()
+        dh = transpose(g, csr, weight, inv) if ctx.needs_input_grad[0] \
+            else None
+        dw = edge_dot(h, g, csr.src, csr.dst, inv) \
+            if ctx.needs_input_grad[1] else None
+        return dh, dw, None, None

@@ -5,7 +5,15 @@ bias and relu in one launch.
 ``csrc/fused_layer.cu``; its plain version is
 :func:`repro_torch.kernels.ref.fused_gcn_reference` (re-exported here as
 ``plain``). The aggregate is written out only when ``need_agg`` is set
-(a backward pass needs it for dW; inference does not).
+(a backward pass needs it for dW; inference does not). :func:`fused`
+dispatches: CPU tensors go to the plain version, CUDA tensors to
+:func:`launch`.
+
+:class:`FusedLayerFn` is the reference's custom VJP (``_fused_diff``): its
+forward launches the kernel with ``need_agg``; its backward takes
+``gz = g·(out > 0)``, ``db = Σgz``, ``dW = aggᵀgz`` and ``da = gz Wᵀ``
+with ``torch.matmul`` (the reference leaves them to XLA), ``dh`` from
+kernel A over the reversed arcs and ``dw`` from kernel C.
 """
 from __future__ import annotations
 
@@ -15,13 +23,20 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .csr_aggregate import check_tensor
+from ._build import check_tensor
+from .csr_aggregate import plain as aggregate_plain
+from .csr_aggregate import transpose
+from .edge_dot import edge_dot
 from .ref import fused_gcn_reference as plain
+from .ref import gcn_epilogue
 
-__all__ = ["launch", "plain", "launches", "smem_bytes"]
+__all__ = ["FusedLayerFn", "fused", "launch", "plain", "launches",
+           "launches_need_agg", "smem_bytes"]
 
-#: Kernel launches since the last reset (see ``ops.reset_launch_counts``).
+#: Kernel launches since the last reset (see ``ops.reset_launch_counts``),
+#: and those of them that wrote the aggregate (``need_agg``).
 launches = 0
+launches_need_agg = 0
 
 _lib_cache = None
 
@@ -53,7 +68,7 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
            need_agg: bool = False
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the CUDA kernel; returns ``(out [N, FO], agg [N, F] or None)``."""
-    global launches
+    global launches, launches_need_agg
     device = h.device
     if device.type != "cuda":
         raise ValueError(f"fused_gcn_layer kernel needs CUDA tensors, "
@@ -94,4 +109,52 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
         raise RuntimeError("fused_gcn_layer kernel launch failed: "
                            + lib.fused_gcn_error(err).decode())
     launches += 1
+    launches_need_agg += int(need_agg)
     return out, agg
+
+
+def fused(h: torch.Tensor, csr, weight: torch.Tensor,
+          inv_scale: Optional[torch.Tensor], w: torch.Tensor, b: torch.Tensor,
+          activate: bool = True, need_agg: bool = False
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version for a CPU tensor, the kernel for a CUDA one;
+    returns ``(out, agg or None)`` over ``csr``'s arcs with ``weight``."""
+    if h.device.type == "cpu":
+        agg = aggregate_plain(h, csr.src, csr.dst, weight, h.shape[0],
+                              inv_scale)
+        return gcn_epilogue(agg, w, b, activate), agg if need_agg else None
+    return launch(h, csr.src, csr.row_ptr, weight, inv_scale, w, b,
+                  activate=activate, need_agg=need_agg)
+
+
+class FusedLayerFn(torch.autograd.Function):
+    """``out = act((inv ⊙ A·h) @ W + b)`` (kernel B) with the reference's
+    VJP. ``weight`` is the CSR-ordered arc weight, passed on its own so
+    autograd sees it; ``csr`` and ``inv_scale`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, weight, w, b, csr, inv_scale, activate):
+        out, agg = fused(h, csr, weight, inv_scale, w, b, activate,
+                         need_agg=True)
+        ctx.csr, ctx.activate = csr, activate
+        ctx.save_for_backward(h, weight, w, inv_scale, agg, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, weight, w, inv, agg, out = ctx.saved_tensors
+        csr = ctx.csr
+        need_h, need_weight, need_w, need_b = ctx.needs_input_grad[:4]
+        gz = g.float()
+        if ctx.activate:
+            gz = gz * (out > 0.0)     # relu's gradient is 0 at z == 0
+        db = gz.sum(dim=0) if need_b else None
+        dw_mat = agg.t() @ gz if need_w else None
+        dh = dw_arc = None
+        if need_h or need_weight:
+            da = (gz @ w.float().t()).contiguous()
+            if need_h:
+                dh = transpose(da, csr, weight, inv)
+            if need_weight:
+                dw_arc = edge_dot(h, da, csr.src, csr.dst, inv)
+        return dh, dw_arc, dw_mat, db, None, None, None

@@ -9,8 +9,16 @@ from an arc list on the arcs' own device: it checks on the device that
 ``edge_dst`` is sorted and stable-sorts ``(dst, src, w)`` when it is not
 (the padding contract lets weight-0 arcs point at any in-range row, so a
 caller may hand over unsorted arcs), then takes ``row_ptr`` with
-``searchsorted``. A GNN forward builds it once per graph and reuses it for
-every layer.
+``searchsorted``. It also builds the reversed arcs the backward passes
+read (the same arcs sorted stably by source, with their own row offsets),
+so a graph's CSR is built once and serves every layer of every epoch.
+
+``csr_aggregate`` and ``fused_gcn_layer`` go through the kernels'
+``autograd.Function``s when autograd records (a tensor they take requires
+a gradient); otherwise they call the forward directly, so inference writes
+no aggregate and saves nothing. The arc weights they differentiate are
+``csr.weight``: ``to_csr`` gathers them with a differentiable index, so a
+gradient reaches the caller's weights in the caller's arc order.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from . import csr_aggregate as _agg
+from . import edge_dot as _edge_dot
 from . import fused_layer as _fused
 
 __all__ = ["Csr", "to_csr", "csr_aggregate", "fused_gcn_layer",
@@ -26,12 +35,22 @@ __all__ = ["Csr", "to_csr", "csr_aggregate", "fused_gcn_layer",
 
 
 class Csr(NamedTuple):
-    """Arcs sorted (stably) by destination, with row offsets."""
-    src: torch.Tensor       # [E] int32
-    dst: torch.Tensor       # [E] int32, non-decreasing
-    weight: torch.Tensor    # [E] f32
-    row_ptr: torch.Tensor   # [N+1] int32
+    """Arcs sorted (stably) by destination, with row offsets, and the same
+    arcs reversed: sorted (stably) by source, with source-row offsets. The
+    reversed arcs are None on a forward-only CSR (the serving path's star
+    graphs), which no backward pass reads."""
+    src: torch.Tensor           # [E] int32
+    dst: torch.Tensor           # [E] int32, non-decreasing
+    weight: torch.Tensor        # [E] f32
+    row_ptr: torch.Tensor       # [N+1] int32
     num_nodes: int
+    rev_perm: Optional[torch.Tensor] = None     # [E] int64: reversed arc i
+                                                # is arc rev_perm[i]
+    rev_src: Optional[torch.Tensor] = None      # [E] int32, dst[rev_perm]
+    rev_dst: Optional[torch.Tensor] = None      # [E] int32, src[rev_perm],
+                                                # non-decreasing
+    rev_row_ptr: Optional[torch.Tensor] = None  # [N+1] int32, rows of
+                                                # src[rev_perm]
 
 
 def to_csr(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -64,8 +83,12 @@ def to_csr(edge_src: torch.Tensor, edge_dst: torch.Tensor,
             src, dst, w = src[order], dst[order], w[order]
     rows = torch.arange(num_nodes + 1, dtype=torch.int32, device=device)
     row_ptr = torch.searchsorted(dst, rows, out_int32=True)
+    rev_sorted, rev_perm = torch.sort(src, stable=True)
     return Csr(src=src, dst=dst, weight=w, row_ptr=row_ptr,
-               num_nodes=int(num_nodes))
+               num_nodes=int(num_nodes), rev_perm=rev_perm,
+               rev_src=dst.index_select(0, rev_perm), rev_dst=rev_sorted,
+               rev_row_ptr=torch.searchsorted(rev_sorted, rows,
+                                              out_int32=True))
 
 
 def _check_rows(h: torch.Tensor, csr: Csr) -> None:
@@ -74,38 +97,48 @@ def _check_rows(h: torch.Tensor, csr: Csr) -> None:
                          f"{tuple(h.shape)}")
 
 
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def csr_aggregate(h: torch.Tensor, csr: Csr,
                   inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[d] = inv[d] * Σ_{dst[e]=d} w[e]·h[src[e]]`` — kernel A."""
+    """``out[d] = inv[d] * Σ_{dst[e]=d} w[e]·h[src[e]]`` — kernel A.
+
+    Differentiable in ``h`` and ``csr.weight``."""
     _check_rows(h, csr)
-    if h.device.type == "cpu":
-        return _agg.plain(h, csr.src, csr.dst, csr.weight, csr.num_nodes,
+    if _records_grad(h, csr.weight):
+        return _agg.AggregateFn.apply(h, csr.weight, csr, inv_scale)
+    return _agg.aggregate(h, csr.src, csr.dst, csr.row_ptr, csr.weight,
                           inv_scale)
-    return _agg.launch(h, csr.src, csr.row_ptr, csr.weight, inv_scale)
 
 
 def fused_gcn_layer(h: torch.Tensor, csr: Csr,
                     inv_scale: Optional[torch.Tensor], w: torch.Tensor,
                     b: torch.Tensor, activate: bool = True) -> torch.Tensor:
-    """``act((inv ⊙ A·h) @ w + b)`` in one launch — kernel B."""
+    """``act((inv ⊙ A·h) @ w + b)`` in one launch — kernel B.
+
+    Differentiable in ``h``, ``csr.weight``, ``w`` and ``b``."""
     _check_rows(h, csr)
-    if h.device.type == "cpu":
-        return _fused.plain(h, csr.src, csr.dst, csr.weight, inv_scale, w, b,
-                            activate=activate)
-    out, _ = _fused.launch(h, csr.src, csr.row_ptr, csr.weight, inv_scale,
-                           w, b, activate=activate)
-    return out
+    if _records_grad(h, csr.weight, w, b):
+        return _fused.FusedLayerFn.apply(h, csr.weight, w, b, csr, inv_scale,
+                                         activate)
+    return _fused.fused(h, csr, csr.weight, inv_scale, w, b, activate)[0]
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"csr_aggregate": _agg.launches,
-            "fused_gcn_layer": _fused.launches}
+            "fused_gcn_layer": _fused.launches,
+            "fused_gcn_layer_need_agg": _fused.launches_need_agg,
+            "edge_dot": _edge_dot.launches}
 
 
 def reset_launch_counts() -> None:
     _agg.launches = 0
     _fused.launches = 0
+    _fused.launches_need_agg = 0
+    _edge_dot.launches = 0
 
 
 def inv_degree(in_degree: torch.Tensor) -> torch.Tensor:

@@ -40,5 +40,25 @@ def fused_gcn_reference(h: torch.Tensor, edge_src: torch.Tensor,
     """
     agg = csr_aggregate_ref(h, edge_src, edge_dst, edge_weight, h.shape[0],
                             inv_scale)
+    return gcn_epilogue(agg, w, b, activate)
+
+
+def gcn_epilogue(agg: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 activate: bool) -> torch.Tensor:
+    """``act(agg @ W + b)``, the dense half of the fused layer."""
     z = agg @ w.float() + b.float()[None, :]
     return torch.relu(z) if activate else z
+
+
+def edge_dot_ref(h: torch.Tensor, g: torch.Tensor, edge_src: torch.Tensor,
+                 edge_dst: torch.Tensor,
+                 inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dw[e] = Σ_f h[src[e], f] · (inv ⊙ g)[dst[e], f]`` (f32), the
+    aggregation's edge-weight gradient for the cotangent ``g``; as the
+    reference does, ``g`` is scaled by ``inv`` before the two ``[E, F]``
+    gathers. ``inv_scale=None`` means 1."""
+    gs = g.float()
+    if inv_scale is not None:
+        gs = gs * inv_scale.float()[:, None]
+    return (h.index_select(0, edge_src.long()).float()
+            * gs.index_select(0, edge_dst.long())).sum(dim=1)

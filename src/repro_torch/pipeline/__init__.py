@@ -1,1 +1,2 @@
-"""The inference pipeline: dataset -> partition -> embeddings -> bundle."""
+"""The pipeline: dataset -> partition -> local training (or seeded
+inference) -> pooled embeddings -> classifier -> serving bundle."""

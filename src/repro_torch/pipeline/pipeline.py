@@ -1,48 +1,61 @@
-"""The inference pipeline (the serving path's offline half).
+"""The pipeline: the training run and the inference run.
 
     dataset -> Leiden-Fusion partition -> per-partition assembly
-    -> GNN forward per partition -> pooled embedding table
-    -> classifier forward (the offline answer key) -> serving bundle
+    -> to device (one CSR per partition)
+    -> train: k GNN replicas trained locally   | embed: seeded or given
+       (no communication), pooled embeddings   |   parameters, pooled
+    -> classifier trained on the pooled table  |   embeddings
+    -> offline answer key (blocked classify) -> serving bundle
 
-Parameters are seeded (``torch.Generator``) or handed in, for example the
-reference's carried across with ``params_from_jax``; training is not part
-of this package yet.
+:func:`run_training` is the paper's local mode; :func:`run_inference`
+runs the same stages with seeded (or handed-in) parameters and no
+training. Both time every stage on the host clock, each ending in a device
+synchronize.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import (LeidenFusionConfig, NodeDataset,
-                              PartitionBatch, build_partition_batch,
-                              partition)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.core import (INTEGRATION_KINDS, LeidenFusionConfig,
+                              NodeDataset, PartitionBatch,
+                              build_partition_batch, partition)
+from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.gnn.infer import (PartitionTensors, compute_embeddings,
                                    gather_partition_tensors,
                                    init_partition_models, pool_embeddings)
 from repro_torch.gnn.model import GNNConfig, init_mlp
+from repro_torch.gnn.train import train_classifier, train_local
 
 from .datasets import get_dataset
 
-__all__ = ["PipelineConfig", "InferenceResult", "run_inference"]
+__all__ = ["PipelineConfig", "PipelineResult", "PipelineReport",
+           "run_training", "run_inference"]
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """One inference run. Defaults are the reference pipeline's."""
+    """One run. Defaults are the reference pipeline's."""
     dataset: str = "arxiv-like"
     k: int = 8
     seed: int = 0
     scheme: str = "repli"           # "inner" | "repli"
+    mode: str = "local"             # only "local" is ported
+    integrate: str = "none"         # "none" | "model_avg" | "ensemble"
     model: str = "gcn"              # "gcn" | "sage"
     hidden_dim: int = 128
     embed_dim: int = 128
     num_layers: int = 3
+    dropout: float = 0.3
+    epochs: int = 60
+    lr: float = 5e-3
+    classifier_epochs: int = 150    # <= 0 skips the classifier stage
     classifier_hidden: int = 256
+    low_memory: bool = False        # train one partition at a time
     partitioner: LeidenFusionConfig = LeidenFusionConfig()
     serving_dir: Optional[str] = None   # export a serving bundle here
     dataset_kwargs: Mapping[str, Any] = dataclasses.field(
@@ -50,49 +63,117 @@ class PipelineConfig:
 
 
 @dataclasses.dataclass
-class InferenceResult:
+class PipelineResult:
     """What one run produced, on the run's device where it is a tensor."""
     dataset: NodeDataset
     labels: np.ndarray              # [n] partition of every node
     batch: PartitionBatch
-    tensors: PartitionTensors
+    tensors: Optional[PartitionTensors]   # None for a low-memory run
     gnn: GNNConfig
     params: Dict[str, Any]          # stacked k replicas (body + head)
     classifier: Dict[str, torch.Tensor]
     embeddings: torch.Tensor        # [n, E] pooled table
     predictions: np.ndarray         # [n] offline answer key
     timings: Dict[str, float]
+    accuracy: Dict[str, float] = dataclasses.field(default_factory=dict)
+    losses: Optional[np.ndarray] = None   # [epochs, k], training runs
     serving_path: Optional[str] = None
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+@dataclasses.dataclass(frozen=True)
+class PipelineReport:
+    """The reference's report fields that apply to the port's run."""
+    config: Dict[str, Any]
+    dataset: str
+    num_nodes: int
+    num_edges: int
+    device: str
+    shapes: Dict[str, int]          # k, n_pad, e_pad
+    accuracy: Dict[str, float]      # train/val/test (empty if skipped)
+    timings: Dict[str, float]
+    partition_fingerprint: str
+    serving_path: Optional[str] = None
+
+    @classmethod
+    def of(cls, cfg: PipelineConfig, result: PipelineResult
+           ) -> "PipelineReport":
+        ds, batch = result.dataset, result.batch
+        return cls(
+            config={**dataclasses.asdict(cfg),
+                    "partitioner": cfg.partitioner.canonical(),
+                    "dataset_kwargs": dict(cfg.dataset_kwargs)},
+            dataset=ds.name,
+            num_nodes=int(ds.graph.n), num_edges=int(ds.graph.num_arcs // 2),
+            device=str(result.embeddings.device),
+            shapes={"k": batch.k, "n_pad": batch.n_pad,
+                    "e_pad": batch.e_pad},
+            accuracy=dict(result.accuracy),
+            timings={k: round(v, 4) for k, v in result.timings.items()},
+            partition_fingerprint=cfg.partitioner.fingerprint(),
+            serving_path=result.serving_path)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def summary(self) -> str:
+        c = self.config
+        lines = ["PipelineReport",
+                 f"  dataset      {self.dataset} (n={self.num_nodes}, "
+                 f"edges={self.num_edges})",
+                 f"  partition    {c['partitioner']} k={c['k']} "
+                 f"seed={c['seed']} fp={self.partition_fingerprint}",
+                 f"  assembly     scheme={c['scheme']} "
+                 f"n_pad={self.shapes['n_pad']} "
+                 f"e_pad={self.shapes['e_pad']}",
+                 f"  training     mode={c['mode']} model={c['model']} "
+                 f"layers={c['num_layers']} epochs={c['epochs']} "
+                 f"device={self.device}"]
+        if c["integrate"] != "none":
+            lines.append(f"  integration  {c['integrate']} over "
+                         f"k={c['k']} partition models (pre-assembly)")
+        if self.accuracy:
+            lines.append(f"  accuracy     train={self.accuracy['train']:.3f}"
+                         f" val={self.accuracy['val']:.3f} "
+                         f"test={self.accuracy['test']:.3f}")
+        if self.serving_path:
+            lines.append(f"  serving      {self.serving_path}")
+        lines.append("  timings      " + " ".join(
+            f"{k}={v:.2f}s" for k, v in self.timings.items()))
+        return "\n".join(lines)
 
 
-def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
-                  ds: Optional[NodeDataset] = None,
-                  params: Optional[Dict[str, Any]] = None,
-                  classifier: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> InferenceResult:
-    """Run the pipeline; ``params``/``classifier`` default to seeded ones.
+class _Stages:
+    """Times each stage into ``timings`` (host clock, ending in a device
+    synchronize)."""
 
-    Each stage's wall time (ending in a device synchronize) lands in
-    ``timings``.
-    """
-    from repro_torch.serving.store import classify, export_from_pipeline
-    device = resolve_device(device)
-    if cfg.k < 1:
-        raise ValueError(f"k must be >= 1, got {cfg.k}")
-    timings: Dict[str, float] = {}
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.timings: Dict[str, float] = {}
 
-    def stage(name, fn):
+    def __call__(self, name: str, fn: Callable[[], Any]) -> Any:
         t0 = time.perf_counter()
         out = fn()
-        _sync(device)
-        timings[name] = time.perf_counter() - t0
+        synchronize(self.device)
+        self.timings[name] = time.perf_counter() - t0
         return out
 
+
+def _check(cfg: PipelineConfig) -> None:
+    if cfg.k < 1:
+        raise ValueError(f"k must be >= 1, got {cfg.k}")
+    if cfg.mode in ("sync", "stale"):
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} is not ported yet (ROADMAP.md, A.8: sync "
+            f"and stale modes); the port trains in local mode")
+    if cfg.mode != "local":
+        raise ValueError(f"mode must be local|sync|stale, got {cfg.mode!r}")
+    if cfg.integrate not in INTEGRATION_KINDS:
+        raise ValueError(f"integrate must be one of {INTEGRATION_KINDS}, "
+                         f"got {cfg.integrate!r}")
+
+
+def _partitioned(cfg: PipelineConfig, stage: _Stages,
+                 ds: Optional[NodeDataset]):
     if ds is None:
         ds = stage("dataset", lambda: get_dataset(cfg.dataset,
                                                   **dict(cfg.dataset_kwargs)))
@@ -100,11 +181,86 @@ def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
         ds.graph, cfg.k, seed=cfg.seed, cfg=cfg.partitioner))
     batch = stage("assemble", lambda: build_partition_batch(
         ds.graph, labels, scheme=cfg.scheme))
-    tensors = stage("to_device",
-                    lambda: gather_partition_tensors(ds, batch, device))
     gnn = GNNConfig(kind=cfg.model, feature_dim=int(ds.features.shape[1]),
                     hidden_dim=cfg.hidden_dim, embed_dim=cfg.embed_dim,
-                    num_layers=cfg.num_layers)
+                    num_layers=cfg.num_layers, dropout=cfg.dropout)
+    return ds, labels, batch, gnn
+
+
+def _finish(cfg: PipelineConfig, stage: _Stages,
+            result: PipelineResult) -> PipelineResult:
+    from repro_torch.serving.store import classify, export_from_pipeline
+    result.predictions = stage("classify", lambda: classify(
+        result.classifier, result.embeddings).argmax(-1).cpu().numpy()
+        .astype(np.int32))
+    if cfg.serving_dir:
+        result.serving_path = stage("export", lambda: export_from_pipeline(
+            cfg.serving_dir, result, cfg.partitioner))
+    result.timings = stage.timings
+    return result
+
+
+def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
+                 ds: Optional[NodeDataset] = None,
+                 params: Optional[Dict[str, Any]] = None,
+                 classifier: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> PipelineResult:
+    """The paper's pipeline in local mode: train the k GNN replicas, pool
+    their embeddings, train the classifier, and export the trained bundle.
+
+    ``params``/``classifier`` are the initial parameters; they default to
+    the seeded ones :func:`run_inference` uses. The offline answer key is
+    the trained classifier's blocked ``classify`` of the pooled table."""
+    _check(cfg)
+    if cfg.serving_dir and cfg.classifier_epochs <= 0:
+        raise ValueError("serving_dir requires the classifier stage "
+                         "(classifier_epochs > 0)")
+    device = resolve_device(device)
+    stage = _Stages(device)
+    ds, labels, batch, gnn = _partitioned(cfg, stage, ds)
+    tensors = None
+    if not cfg.low_memory:
+        tensors = stage("to_device",
+                        lambda: gather_partition_tensors(ds, batch, device))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if params is None:
+        params = init_partition_models(gnn, ds.num_classes, batch.k, gen,
+                                       device)
+    if classifier is None:
+        classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
+                              ds.num_classes, device)
+    trained = stage("train", lambda: train_local(
+        ds, batch, gnn, epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
+        integrate=cfg.integrate, sequential=cfg.low_memory, device=device,
+        params=params, tensors=tensors))
+    stage.timings["train_epochs"] = trained.seconds["epochs"]
+    stage.timings["train_embed"] = trained.seconds["embed"]
+    accuracy: Dict[str, float] = {}
+    if cfg.classifier_epochs > 0:
+        accuracy, classifier = stage("classifier", lambda: train_classifier(
+            ds, trained.embeddings, hidden=cfg.classifier_hidden,
+            epochs=cfg.classifier_epochs, seed=cfg.seed, params=classifier))
+    result = PipelineResult(
+        dataset=ds, labels=labels, batch=batch, tensors=tensors, gnn=gnn,
+        params=trained.params, classifier=classifier,
+        embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
+        timings={}, accuracy=accuracy, losses=trained.losses)
+    return _finish(cfg, stage, result)
+
+
+def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
+                  ds: Optional[NodeDataset] = None,
+                  params: Optional[Dict[str, Any]] = None,
+                  classifier: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> PipelineResult:
+    """Run the pipeline without training; ``params``/``classifier``
+    default to seeded ones."""
+    _check(cfg)
+    device = resolve_device(device)
+    stage = _Stages(device)
+    ds, labels, batch, gnn = _partitioned(cfg, stage, ds)
+    tensors = stage("to_device",
+                    lambda: gather_partition_tensors(ds, batch, device))
     gen = torch.Generator().manual_seed(cfg.seed)
     if params is None:
         params = init_partition_models(gnn, ds.num_classes, batch.k, gen,
@@ -115,13 +271,8 @@ def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
     emb = stage("embed", lambda: compute_embeddings(params, gnn, tensors))
     pooled = stage("pool", lambda: pool_embeddings(emb, tensors, ds.graph.n))
     del emb
-    predictions = stage("classify", lambda: classify(
-        classifier, pooled).argmax(-1).cpu().numpy().astype(np.int32))
-    result = InferenceResult(
+    result = PipelineResult(
         dataset=ds, labels=labels, batch=batch, tensors=tensors, gnn=gnn,
         params=params, classifier=classifier, embeddings=pooled,
-        predictions=predictions, timings=timings)
-    if cfg.serving_dir:
-        result.serving_path = stage("export", lambda: export_from_pipeline(
-            cfg.serving_dir, result, cfg.partitioner))
-    return result
+        predictions=np.zeros(0, np.int32), timings={})
+    return _finish(cfg, stage, result)

@@ -4,8 +4,10 @@
   imports leaves neither ``jax`` nor any ``repro`` module in
   ``sys.modules`` (checked in a fresh interpreter).
 * Entry points default to CUDA and raise without it unless the caller
-  passes ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints no
-  result without a GPU, and when the rest of the repository is absent.
+  passes ``device="cpu"``, the training pipeline and its CLI
+  (``python -m repro_torch.pipeline run``) too; ``chip_smoke.py`` exits
+  non-zero and prints no result without a GPU, and when the rest of the
+  repository is absent.
 """
 import ast
 import json
@@ -19,8 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import resolve_device                         # noqa: E402
+from repro_torch.pipeline import cli as pipeline_cli          # noqa: E402
 from repro_torch.pipeline.pipeline import (PipelineConfig,     # noqa: E402
-                                           run_inference)
+                                           run_inference, run_training)
 from repro_torch.serving import cli                            # noqa: E402
 from repro_torch.serving.store import EmbeddingStore           # noqa: E402
 
@@ -51,7 +54,7 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in mods + {_smoke_imports()!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
-print(json.dumps({{"imported": len(mods), "bad": bad}}))
+print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
 """
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
@@ -59,6 +62,9 @@ print(json.dumps({{"imported": len(mods), "bad": bad}}))
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["imported"] >= 20
     assert got["bad"] == []
+    assert {"repro_torch.optim.adamw", "repro_torch.gnn.train",
+            "repro_torch.kernels.edge_dot", "repro_torch.pipeline.cli",
+            "repro_torch.pipeline.__main__"} <= set(got["mods"])
 
 
 @pytest.fixture
@@ -94,3 +100,32 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
                          cwd=os.path.dirname(script))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    cfg = PipelineConfig(dataset="karate", k=2, hidden_dim=8, embed_dim=8,
+                         classifier_hidden=8, epochs=2, classifier_epochs=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline_cli.main(["run", "--dataset", "karate", "--k", "2"])
+    assert run_training(cfg, device="cpu").embeddings.shape == (34, 8)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_pipeline_cli_needs_a_gpu_unless_told_cpu(device):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.pipeline", "run", "--dataset",
+           "karate", "--k", "4", "--epochs", "3", "--classifier-epochs", "5"]
+    if device:
+        cmd += ["--device", device]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
+                         env=env, cwd=ROOT)
+    if device is None:
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        assert "PipelineReport" in out.stdout
+        assert "accuracy" in out.stdout
