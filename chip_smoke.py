@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's GCN serving, GCN training and LM serving paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,17 +42,48 @@ Phases, each fatal on failure:
    the bound: the larger of bytes moved over 3.35 TB/s and operations over
    67 TFLOP/s (H100 SXM f32 without tensor cores, published peaks at
    700 W); and a profile of two training epochs (device time by kernel,
-   device busy share) and of one AdamW step (its launches).
+   device busy share) and of one AdamW step (its launches);
+9. LM serving main path: ``repro_torch.launch.serve.serve`` on full-width
+   ``qwen3_4b`` (36 layers, bf16, weights seeded on the card), 8 requests,
+   prompts of 64-1024 tokens in pow2 buckets, 32 new tokens. Logits must
+   be finite and kernel D must have launched 36 x 32 x (buckets) times.
+   Then one decode step of a seeded prefill of the largest bucket, once
+   through kernel D and once through its plain version, and a profile of
+   4 decode steps (device ms: kernel D, cuBLAS, the rest; idle share);
+10. long-cache decode: the same model, 4 sequences in a 32,768-slot cache
+   of seeded noise at lengths 0, 4,095, 20,000 and 32,760, 8 decode steps
+   (the last writes slot 32,767 and attends to the full cache); the first
+   step's logits, kernel against plain;
+11. kernel D against its plain version, timed, at the decode_32k layer
+   shape (B 128, S 32,768, H 32, Hkv 8, D 128) in bf16 and (B 16) in f32,
+   and at long_500k's sliding ring (B 1, S 8,192).
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
 gradients), "rel" is taken against the same sum of absolute terms, the
 scale of f32 rounding error, rather than against the result.
 
+Kernel D is held at the reference's bf16 tolerance, 2e-2 (abs + rel), in
+bf16, and at 3e-5 against its sum of absolute terms in f32. The LM's
+logits, kernel path against plain path, are held in bf16 to 0.1 of the
+largest logit (max difference) and 0.1 of the logits' rms (rms
+difference): the two attention outputs differ by a bf16 rounding here and
+there, and 36 bf16 layers carry that on. Each comparison also prints the
+floor, the plain path against itself with the scale applied in the
+reference kernel's order (the same function, other roundings); on the
+card the floor was 3.5% (max) and 2.8% (rms), kernel against plain 3.8%
+and 3.9%. The same step on an f32 copy of the weights is held at 1e-4
+(abs + rel), as the CPU parity tests hold f32 logits. Matmuls run with
+``allow_tf32`` and ``allow_bf16_reduced_precision_reduction`` off, so the
+paths differ only in attention.
+
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU, or without
 the rest of the repository beside it, it exits non-zero before any result.
 """
+import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -71,6 +103,10 @@ QUERIES = 2000
 MAX_NEIGHBORS = 32
 LOSS_TOL = 1e-4        # card vs CPU training, abs + rel
 TABLE_TOL = 1e-3
+BF16_TOL = 2e-2        # kernel D in bf16, abs + rel
+LM_BF16_TOL = 0.1      # LM logits kernel vs plain, bf16: max and rms
+LM_F32_TOL = 1e-4      # the same in f32, abs + rel
+LM_ARCH = "qwen3_4b"
 
 
 def check(ok, what):
@@ -371,6 +407,324 @@ def library_csr(rows, cols, vals, n):
     return coo.to_sparse_csr()
 
 
+@contextlib.contextmanager
+def decode_attention(fn):
+    """Route the LM's decode attention through ``fn`` (a plain version, on
+    the card) for a comparison; its launches are not counted."""
+    from repro_torch.models import attention
+    saved = attention.flash_decode
+    attention.flash_decode = fn
+    try:
+        yield
+    finally:
+        attention.flash_decode = saved
+
+
+def plain_q_scaled(q, k, v, lengths):
+    """Kernel D's plain version with the scale applied to q before the
+    product, the order of the reference's kernel (the reference's plain
+    decode path, like ``flash_decode_ref``, scales the logits): the same
+    function with other f32 roundings."""
+    import torch
+    b, s, hkv, d = k.shape
+    h = q.shape[1]
+    qg = (q.float() * d ** -0.5).reshape(b, hkv, h // hkv, d)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float())
+    valid = torch.arange(s, device=k.device)[None, :] < lengths[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), -1e30, device=k.device))
+    out = torch.einsum("bhgs,bshd->bhgd", torch.softmax(logits, dim=-1),
+                       v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def logits_diff(got, ref):
+    """Max and rms of ``got - ref``, each over the same of ``ref``."""
+    d = (got - ref).float()
+    r = ref.float()
+    return (float(d.abs().max() / r.abs().max()),
+            float(d.pow(2).mean().sqrt() / r.pow(2).mean().sqrt()))
+
+
+def kernel_vs_plain_step(params, cfg, cache, tokens, lengths, what):
+    """One decode step from the same cache through the plain version,
+    through the plain version in the reference kernel's order (the floor:
+    what bf16 roundings alone move), and through kernel D. Each layer
+    writes its new row before it attends, so each step overwrites what the
+    one before wrote: all three see one cache."""
+    import torch
+    from repro_torch.kernels import flash_decode as kernel_d
+    from repro_torch.models.lm import serve_step
+    with torch.no_grad():
+        with decode_attention(kernel_d.plain):
+            ref, _ = serve_step(params, cfg, tokens, cache, lengths)
+        with decode_attention(plain_q_scaled):
+            floor, _ = serve_step(params, cfg, tokens, cache, lengths)
+        got, _ = serve_step(params, cfg, tokens, cache, lengths)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all()),
+          f"non-finite {what} logits")
+    err, floor_err = logits_diff(got, ref), logits_diff(floor, ref)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    row = {"max_err_over_max": err[0], "rms_err_over_rms": err[1],
+           "floor_max_over_max": floor_err[0],
+           "floor_rms_over_rms": floor_err[1],
+           "largest_logit": float(ref.abs().max()), "greedy_agree": agree,
+           "dtype": cfg.dtype}
+    print(f"{what}: kernel D vs plain logits {json.dumps(row)}")
+    tol = LM_BF16_TOL if cfg.dtype == "bfloat16" else LM_F32_TOL
+    if cfg.dtype == "bfloat16":
+        ok = err[0] <= tol and err[1] <= tol
+    else:
+        ok = bool(((got - ref).abs() <= tol + tol * ref.abs()).all())
+    check(ok, f"{what}: logits through kernel D disagree with the plain "
+              f"path: {row}")
+    return got, row
+
+
+def profile_decode(params, cfg, cache, tokens, lengths, steps=4):
+    """Device ms per decode step by kernel (kernel D, cuBLAS, the rest) and
+    the device idle share, over ``steps`` steps (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.lm import serve_step
+    with torch.no_grad():
+        serve_step(params, cfg, tokens, cache, lengths)       # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                serve_step(params, cfg, tokens, cache, lengths + i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    split = {"flash_decode (D)": 0.0, "cublas gemm": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        key = ("flash_decode (D)" if "flash_decode" in name else
+               "cublas gemm" if any(w in name for w in
+                                    ("gemm", "cutlass", "xmma", "gemv",
+                                     "nvjet", "sm90")) else "other")
+        split[key] += e.time_range.elapsed_us()
+    busy = sum(split.values())
+    row = {"wall_ms_per_step": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "idle_share": 1 - busy / wall_us,
+           "kernels_per_step": n / steps,
+           "device_ms_per_step": {k: v / steps / 1e3
+                                  for k, v in split.items()}}
+    print(f"LM decode profile ({steps} steps, B={tokens.shape[0]}, profiler "
+          f"on): {json.dumps(row)}")
+    check(busy > 0 and split["flash_decode (D)"] > 0,
+          "the profiler saw no kernel D launches in the decode steps")
+    return row
+
+
+def lm_serving(dev):
+    """Phase 9: the LM serving main path, then kernel against plain and a
+    profile on a seeded prefill of its largest bucket."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_bucket, serve
+    from repro_torch.models.lm import grow_cache, init_model, prefill_step
+    cfg = get_config(LM_ARCH)
+    args = argparse.Namespace(arch=LM_ARCH, reduced=False, requests=8,
+                              min_prompt=64, max_prompt=1024, max_new=32,
+                              seed=0, device="cuda")
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize()
+    print(f"LM {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, {cfg.dtype}; {cfg.param_count() / 1e9:.3f} B "
+          f"parameters seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ops.reset_launch_counts()
+    report = serve(args, params=params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    n_buckets = len(report["prefill_buckets"])
+    print("LM serve report: " + json.dumps(report))
+    print(f"LM serve: prefill_s={report['prefill_s']:.4f} "
+          f"decode_s={report['decode_s']:.4f} "
+          f"decode_tok_per_s={report['decode_tok_per_s']:.2f} "
+          f"({args.requests} requests x {args.max_new} tokens, "
+          f"{n_buckets} buckets); kernel D launches {launches}")
+    check(report["finite"], "non-finite LM logits")
+    check(launches == cfg.num_layers * args.max_new * n_buckets,
+          f"kernel D launched {launches} times, not {cfg.num_layers} x "
+          f"{args.max_new} x {n_buckets}")
+
+    # a seeded prefill of the largest bucket, rows at their own lengths
+    rng = np.random.default_rng(1)
+    lengths = np.array(report["prompt_lengths"])
+    s_b = max(int(k) for k in report["prefill_buckets"])
+    rows = lengths[[prefill_bucket(int(x)) == s_b for x in lengths]]
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (rows.size, s_b)),
+                             dtype=torch.int32, device=dev)
+    cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    errs = {}
+    # the main path's bf16 weights, then an f32 copy of the same seeded
+    # draws (the generator draws f32 and casts)
+    for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+        p = params if c is cfg else init_model(c, dev, seed=args.seed)
+        with torch.no_grad():
+            logits, cache, _ = prefill_step(p, c, {"tokens": tokens})
+            cache = grow_cache(cache, s_b + args.max_new)
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        _, errs[c.dtype] = kernel_vs_plain_step(
+            p, c, cache, nxt, cur,
+            f"LM serve step ({c.dtype}, bucket {s_b}, {rows.size} rows)")
+        if c is cfg:
+            prof = profile_decode(p, c, cache, nxt, cur)
+        del p, cache
+    return params, cfg, report, launches, errs, prof
+
+
+def lm_long_cache(params, cfg, dev, steps=8):
+    """Phase 10: 4 sequences in a 32,768-slot cache of seeded noise."""
+    import torch
+    from repro_torch.models.lm import init_cache, serve_step
+    s = 32768
+    lengths0 = (0, 4095, 20000, 32760)
+    cache = init_cache(cfg, len(lengths0), s, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for t in cache["layers"].values():
+        t.normal_(0.0, 0.1, generator=gen)
+    tokens = torch.randint(1, cfg.vocab_size, (len(lengths0), 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    lengths = torch.tensor(lengths0, dtype=torch.int32, device=dev)
+    logits, err = kernel_vs_plain_step(params, cfg, cache, tokens, lengths,
+                                       "LM long-cache step 1")
+    times = []
+    with torch.no_grad():
+        for _ in range(steps - 1):
+            tokens = logits.argmax(-1).to(torch.int32)[:, None]
+            lengths = lengths + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = serve_step(params, cfg, tokens, cache, lengths)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()),
+                  "non-finite long-cache logits")
+    last = int(lengths[-1])
+    print(f"LM long-cache decode: {steps} steps, last step wrote slot {last} "
+          f"of {s} and attended to {last + 1}; step ms (host clock, "
+          f"synchronized) {json.dumps([round(1e3 * t, 3) for t in times])}")
+    check(last == s - 1, f"the last step wrote slot {last}, not {s - 1}")
+    del cache
+    return err, statistics.median(times)
+
+
+def kernel_d_case(q, k, v, filled, plain_rows, what):
+    """Kernel D against its plain version and the library call at one
+    shape. The plain version and the library call run over ``plain_rows``
+    rows at a time (the library's math path repeats K/V per query head,
+    which at B 128 would not fit beside the inputs). Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as kernel_d
+    b, s, hkv, d = k.shape
+
+    def plain_all():
+        return torch.cat([kernel_d.plain(q[i:i + plain_rows],
+                                         k[i:i + plain_rows],
+                                         v[i:i + plain_rows],
+                                         filled[i:i + plain_rows])
+                          for i in range(0, b, plain_rows)])
+
+    out = kernel_d.launch(q, k, v, filled)
+    ref = plain_all()
+    if k.dtype == torch.float32:
+        scale = torch.cat([kernel_d.plain(q[i:i + plain_rows],
+                                          k[i:i + plain_rows],
+                                          v[i:i + plain_rows].abs(),
+                                          filled[i:i + plain_rows])
+                           for i in range(0, b, plain_rows)])
+        err = max_err(out, ref, scale, f"kernel D {what}")
+    else:
+        o, r = out.float(), ref.float()
+        check(bool(torch.isfinite(o).all()), f"non-finite kernel D {what}")
+        diff = (o - r).abs()
+        check(bool((diff <= BF16_TOL + BF16_TOL * r.abs()).all()),
+              f"kernel D {what} disagrees with its plain version: max abs "
+              f"err {float(diff.max())}")
+        err = float(diff.max())
+    rows = int(filled.clamp(0, s).sum())
+    nbytes = (2 * rows * hkv * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * b)
+    bound, by = bound_ms(nbytes, 4 * rows * q.shape[1] * d)
+    # the library call, on K/V already in its [B, Hkv, S, D] layout
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=k.device)[None, :]
+            < filled[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return torch.cat([F.scaled_dot_product_attention(
+            q4[i:i + plain_rows], kt[i:i + plain_rows], vt[i:i + plain_rows],
+            attn_mask=mask[i:i + plain_rows], enable_gqa=True)
+            for i in range(0, b, plain_rows)])
+    lib_err = float((library()[:, :, 0].float() - ref.float()).abs().max())
+    check(lib_err < 5e-2, f"scaled_dot_product_attention does not compute "
+                          f"kernel D's function ({lib_err})")
+    row = {"shape": {"B": b, "S": s, "H": q.shape[1], "Hkv": hkv, "D": d,
+                     "dtype": str(k.dtype).split(".")[-1],
+                     "filled_sum": rows, "plain_rows_per_call": plain_rows},
+           "max_abs_err": err,
+           "ms": time_ms(lambda: kernel_d.launch(q, k, v, filled)),
+           "plain_ms": time_ms(plain_all, iters=10),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": time_ms(library, iters=10),
+           "library_max_abs_diff": lib_err}
+    del kt, vt
+    print(f"kernel D {what}: {json.dumps(row)}")
+    return row
+
+
+def kernel_d_against_plain(dev):
+    """Phase 11: kernel D at decode_32k's layer shape (bf16, and f32 at
+    B 16) and at long_500k's sliding ring."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s, h, hkv, d = 32768, 32, 8, 128
+
+    def qkv(b, s, dtype):
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, hkv, d), generator=gen, device=dev,
+                        dtype=dtype)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=dev,
+                        dtype=dtype)
+        return q, k, v
+    filled = rng.integers(1, s + 1, 128)
+    filled[:5] = (1, 511, 512, 513, s)
+    f = torch.as_tensor(filled, dtype=torch.int32, device=dev)
+    rows = {}
+    q, k, v = qkv(128, s, torch.bfloat16)
+    rows["decode_32k"] = kernel_d_case(q, k, v, f, 32, "decode_32k bf16")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = qkv(16, s, torch.float32)
+    rows["decode_32k_f32"] = kernel_d_case(q, k, v, f[:16].contiguous(), 8,
+                                           "decode_32k f32 (B 16)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = qkv(1, 8192, torch.bfloat16)
+    rows["long_500k_ring"] = kernel_d_case(
+        q, k, v, torch.full((1,), 8192, dtype=torch.int32, device=dev), 1,
+        "long_500k ring (B 1, S 8,192)")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -391,6 +745,9 @@ def main():
     # f32 products stay f32 (the reference's parity); the defaults, stated
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in full precision (phases 9-10 compare the LM's
+    # kernel path with its plain path; only attention may differ)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
 
     # -- 1. the card ----------------------------------------------------
@@ -694,6 +1051,38 @@ def main():
     print("per partition: " + json.dumps(per_part))
 
     check(profile_training(trained, dev), "the profiler saw no kernels")
+    del trained, result, batcher, store, on_card
+    torch.cuda.empty_cache()
+
+    # -- 9. the LM serving main path ---------------------------------------
+    lm_params, lm_cfg, lm_report, d_launches, serve_err, lm_prof = \
+        lm_serving(dev)
+
+    # -- 10. long-cache decode ---------------------------------------------
+    long_err, long_step_s = lm_long_cache(lm_params, lm_cfg, dev)
+    del lm_params
+    torch.cuda.empty_cache()
+
+    # -- 11. kernel D against its plain version, timed ---------------------
+    d_rows = kernel_d_against_plain(dev)
+    top = d_rows["decode_32k"]
+    kernels.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:26",
+        "launches": d_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in d_rows.values()),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "shape": top["shape"],
+        "shapes": {k: v for k, v in d_rows.items() if k != "decode_32k"},
+        "lm_logits_err": {"serve_step": serve_err,
+                          "long_cache_step": long_err},
+        "lm_decode_profile": lm_prof,
+        "lm_long_cache_step_ms": 1e3 * long_step_s,
+        "lm_serve": {k: lm_report[k] for k in (
+            "prefill_s", "decode_s", "decode_tok_per_s",
+            "prefill_buckets")}})
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

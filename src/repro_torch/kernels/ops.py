@@ -4,7 +4,9 @@ A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 goes to the hand-written CUDA kernel, which launches or raises — there is
 no fallback from the card to the plain version.
 
-Both kernels read a CSR over destination rows. :func:`to_csr` builds it
+``flash_decode`` (kernel D) is the LM's decode attention over a KV cache.
+
+The graph kernels read a CSR over destination rows. :func:`to_csr` builds it
 from an arc list on the arcs' own device: it checks on the device that
 ``edge_dst`` is sorted and stable-sorts ``(dst, src, w)`` when it is not
 (the padding contract lets weight-0 arcs point at any in-range row, so a
@@ -28,10 +30,13 @@ import torch
 
 from . import csr_aggregate as _agg
 from . import edge_dot as _edge_dot
+from . import flash_decode as _flash
 from . import fused_layer as _fused
+from .flash_decode import flash_decode
 
 __all__ = ["Csr", "to_csr", "csr_aggregate", "fused_gcn_layer",
-           "inv_degree", "launch_counts", "reset_launch_counts"]
+           "flash_decode", "inv_degree", "launch_counts",
+           "reset_launch_counts"]
 
 
 class Csr(NamedTuple):
@@ -131,7 +136,8 @@ def launch_counts() -> Dict[str, int]:
     return {"csr_aggregate": _agg.launches,
             "fused_gcn_layer": _fused.launches,
             "fused_gcn_layer_need_agg": _fused.launches_need_agg,
-            "edge_dot": _edge_dot.launches}
+            "edge_dot": _edge_dot.launches,
+            "flash_decode": _flash.launches}
 
 
 def reset_launch_counts() -> None:
@@ -139,6 +145,7 @@ def reset_launch_counts() -> None:
     _fused.launches = 0
     _fused.launches_need_agg = 0
     _edge_dot.launches = 0
+    _flash.launches = 0
 
 
 def inv_degree(in_degree: torch.Tensor) -> torch.Tensor:

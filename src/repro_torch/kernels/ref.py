@@ -62,3 +62,25 @@ def edge_dot_ref(h: torch.Tensor, g: torch.Tensor, edge_src: torch.Tensor,
         gs = gs * inv_scale.float()[:, None]
     return (h.index_select(0, edge_src.long()).float()
             * gs.index_select(0, edge_dst.long())).sum(dim=1)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode attention, batched.
+
+    q: ``[B, H, D]``; k, v: ``[B, S, Hkv, D]``; lengths: ``[B]`` valid prefix
+    lengths. Query head ``h`` reads kv head ``h // (H // Hkv)``. Positions
+    ``>= lengths[b]`` are masked to -1e30 before an f32 softmax; a row with
+    length 0 is the mean of V, as the reference's oracle gives. Returns
+    ``[B, H, D]`` in q's dtype. The grouped einsum reads each kv head once
+    per group instead of repeating K and V ``H // Hkv`` times."""
+    b, s, hkv, d = k.shape
+    h = q.shape[1]
+    qg = q.float().reshape(b, hkv, h // hkv, d)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * d ** -0.5
+    valid = torch.arange(s, device=k.device)[None, :] < lengths[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), -1e30, device=k.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v.float())
+    return out.reshape(b, h, d).to(q.dtype)

@@ -5,7 +5,8 @@
   ``sys.modules`` (checked in a fresh interpreter).
 * Entry points default to CUDA and raise without it unless the caller
   passes ``device="cpu"``, the training pipeline and its CLI
-  (``python -m repro_torch.pipeline run``) too; ``chip_smoke.py`` exits
+  (``python -m repro_torch.pipeline run``) too, and the LM's
+  (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``); ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
   repository is absent.
 """
@@ -65,6 +66,10 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
     assert {"repro_torch.optim.adamw", "repro_torch.gnn.train",
             "repro_torch.kernels.edge_dot", "repro_torch.pipeline.cli",
             "repro_torch.pipeline.__main__"} <= set(got["mods"])
+    assert {"repro_torch.models.lm", "repro_torch.models.attention",
+            "repro_torch.models.convert", "repro_torch.configs.qwen3_4b",
+            "repro_torch.kernels.flash_decode",
+            "repro_torch.launch.serve"} <= set(got["mods"])
 
 
 @pytest.fixture
@@ -129,3 +134,34 @@ def test_pipeline_cli_needs_a_gpu_unless_told_cpu(device):
         assert out.returncode == 0, out.stderr
         assert "PipelineReport" in out.stdout
         assert "accuracy" in out.stdout
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_config("qwen3_4b").reduced()
+    for call in (lambda: lm.init_model(cfg), lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: serve.main(["--reduced", "--requests", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert lm.init_cache(cfg, 1, 8, "cpu")["layers"]["k"].shape[2] == 8
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_serve_cli_needs_a_gpu_unless_told_cpu(device):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen3_4b", "--reduced", "--requests", "2", "--max-new", "3"]
+    if device:
+        cmd += ["--device", device]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
+                         env=env, cwd=ROOT)
+    if device is None:
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        report = json.loads(out.stdout)
+        assert report["finite"] and report["device"] == "cpu"
