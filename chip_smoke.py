@@ -41,8 +41,15 @@ Phases, each fatal on failure:
    PyTorch library call's time where one computes the same function, and
    the bound: the larger of bytes moved over 3.35 TB/s and operations over
    67 TFLOP/s (H100 SXM f32 without tensor cores, published peaks at
-   700 W); and a profile of two training epochs (device time by kernel,
-   device busy share) and of one AdamW step (its launches);
+   700 W). Kernels B (``need_agg``) and A over the
+   reversed arcs also run on each of the 8 partitions, whose weight-0
+   padding arcs (6 to a third of the arcs) sit in one row: error, two
+   calls bitwise equal, time, bound, and for A ``torch.sparse.mm``; their
+   ``kernels`` rows give the partition with the most padding arcs and the
+   launch-weighted mean beside the light partition. Then a profile of two
+   training epochs (device time by kernel and by launch, device busy
+   share, and each kernel's device launches per wrapper call, counted
+   there) and of one AdamW step (its launches);
 9. LM serving main path: ``repro_torch.launch.serve.serve`` on full-width
    ``qwen3_4b`` (36 layers, bf16, weights seeded on the card), 8 requests,
    prompts of 64-1024 tokens in pow2 buckets, 32 new tokens. Logits must
@@ -137,6 +144,24 @@ def bound_ms(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def layer_bound(nn, f, fo, e, e_live, need_agg):
+    """Kernel B's bound: h, the arcs, row_ptr, inv, W, b read once, out
+    (and agg) written once; the live arcs' FMAs, the scale, the product
+    and the epilogue at the f32 rate (the product stays off the tensor
+    cores: see csrc/fused_layer.cu)."""
+    nbytes = 4 * (nn * f + 2 * e + (nn + 1) + nn + f * fo + fo + nn * fo
+                  + (nn * f if need_agg else 0))
+    return bound_ms(nbytes,
+                    2 * e_live * f + nn * f + 2 * nn * f * fo + nn * fo)
+
+
+def transpose_bound(nn, f, e, rev_live):
+    """Kernel A over the reversed arcs: g, the arcs and row_ptr read once,
+    dh written once; the live arcs' FMAs at the f32 rate."""
+    return bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn * f),
+                    2 * rev_live * f)
 
 
 def max_err(out, ref, scale=None, what="kernel"):
@@ -340,12 +365,86 @@ def gradients_against_plain(tens, params, dev):
     return launches["edge_dot"], p
 
 
+def kernels_per_partition(tens, w0, b0, dev):
+    """Kernel B (``need_agg``, the training forward) and kernel A over the
+    reversed arcs (the backward's ``dh``) on each of the main path's
+    partitions: error against the plain version, two calls bitwise equal,
+    time (CUDA events, median of 10), bound, and the library call for
+    kernel A (``torch.sparse.mm`` over the same reversed CSR's live arcs).
+    Each partition's weight-0 padding arcs sit in one row (the assembly
+    parks them at row n_pad-1, source 0)."""
+    import torch
+    from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import fused_layer as kernel_b
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for q in range(tens.k):
+        c = tens.csrs[q]
+        h = tens.features[q].contiguous()
+        inv = ops.inv_degree(tens.in_degree[q])
+        nn, f = h.shape
+        fo, e = w0.shape[1], c.src.shape[0]
+        e_live = int((c.weight > 0).sum())
+        g = torch.randn((nn, f), generator=gen, device=dev)
+        rev_w = (c.weight * inv[c.dst.long()])[c.rev_perm].contiguous()
+        rev_dst = c.src[c.rev_perm].contiguous()
+
+        def fused():
+            return kernel_b.launch(h, c.src, c.row_ptr, c.weight, inv, w0, b0,
+                                   need_agg=True)
+
+        def transpose():
+            return kernel_a.launch(g, c.rev_src, c.rev_row_ptr, rev_w)
+        (out, agg), again = fused(), fused()
+        check(torch.equal(out, again[0]) and torch.equal(agg, again[1]),
+              f"kernel B: two calls differ (partition {q})")
+        agg_ref = plain.csr_aggregate_ref(h, c.src, c.dst, c.weight, nn, inv)
+        err_b = max(
+            max_err(out, plain.gcn_epilogue(agg_ref, w0, b0, True),
+                    what=f"kernel B (partition {q})"),
+            max_err(agg, agg_ref, plain.csr_aggregate_ref(
+                h.abs(), c.src, c.dst, c.weight, nn, inv),
+                f"kernel B agg (partition {q})"))
+        dh = transpose()
+        check(torch.equal(dh, transpose()),
+              f"kernel A: two calls differ (partition {q})")
+        err_a = max_err(dh, kernel_a.plain(g, c.rev_src, rev_dst, rev_w, nn),
+                        kernel_a.plain(g.abs(), c.rev_src, rev_dst, rev_w,
+                                       nn),
+                        f"kernel A transposed (partition {q})")
+        sp = library_csr(rev_dst, c.rev_src, rev_w, nn)
+        check(torch.allclose(torch.sparse.mm(sp, g), dh, rtol=1e-3,
+                             atol=1e-3),
+              "torch.sparse.mm does not compute the transposed aggregation")
+        b_bound, b_by = layer_bound(nn, f, fo, e, e_live, need_agg=True)
+        a_bound, a_by = transpose_bound(nn, f, e, int((rev_w > 0).sum()))
+        row = {"p": q, "pad_arcs": int((c.weight == 0).sum()),
+               "e_live": e_live, "row_max": int(c.row_ptr.diff().max()),
+               "rev_row_max": int(c.rev_row_ptr.diff().max()),
+               "fused_err": err_b, "fused_bound_ms": b_bound,
+               "fused_bound_by": b_by,
+               "transpose_err": err_a, "transpose_bound_ms": a_bound,
+               "transpose_bound_by": a_by,
+               "transpose_library_ms": time_ms(
+                   lambda: torch.sparse.mm(sp, g), iters=10),
+               "fused_ms": time_ms(fused, iters=10),
+               "transpose_ms": time_ms(transpose, iters=10)}
+        rows.append(row)
+        print(f"partition {q}: {json.dumps(row)}")
+    return rows
+
+
 def profile_training(result, dev):
     """Device time by kernel over two training epochs, and the launches of
-    one stacked AdamW step (``torch.profiler``, CUPTI)."""
+    one stacked AdamW step (``torch.profiler``, CUPTI). Returns the device
+    launches per wrapper call of kernels B and A in those epochs,
+    ``{"B": ..., "A": ...}``, counted from the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.gnn.train import stacked_train_step
+    from repro_torch.kernels import ops
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.tree import tree_map
     tens, cfg = result.tensors, result.gnn
@@ -357,6 +456,7 @@ def profile_training(result, dev):
         return stacked_train_step(params, opt, tens, cfg, False, 5e-3, gens)
     params, opt, _ = epoch()                 # warm
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -364,19 +464,45 @@ def profile_training(result, dev):
             params, opt, _ = epoch()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    groups = {"fused_gcn (fwd, B)": "fused_gcn_kernel",
-              "csr_aggregate (bwd transpose, A)": "csr_aggregate_kernel",
-              "edge_dot (C)": "edge_dot_kernel"}
+    calls = ops.launch_counts()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    # Kernel B's wrapper runs kernel A's gather and fix-up into its
+    # aggregate, then its product, back to back on one stream: kernel A's
+    # launches that the next launch, a product, follows are kernel B's.
+    group_b, group_a = "fused_gcn (fwd, B)", "csr_aggregate (bwd transpose, A)"
     gemm, other = "gemm (bwd dW, da; head)", "other (elementwise, reductions)"
-    split = {k: 0.0 for k in (*groups, gemm, other)}
+    edge = "edge_dot (C)"
+    split = {k: 0.0 for k in (group_b, group_a, edge, gemm, other)}
+    parts, count = {}, {"B": 0, "A": 0}
+
+    def take(owner, evs):
+        for ev in evs:
+            name = next(n for n in ("csr_aggregate_gather",
+                                    "csr_aggregate_fixup",
+                                    "fused_gcn_product") if n in ev.name)
+            us = ev.time_range.elapsed_us()
+            split[group_b if owner == "B" else group_a] += us
+            parts[f"{owner}: {name}"] = parts.get(f"{owner}: {name}", 0.0) + us
+            count[owner] += 1
+    pending = []
     for e in kernels:
-        key = next((k for k, v in groups.items() if v in e.name), None)
-        if key is None:
-            key = gemm if any(s in e.name.lower() for s in
-                              ("gemm", "cutlass", "xmma")) else other
-        split[key] += e.time_range.elapsed_us()
+        if "csr_aggregate_" in e.name:
+            pending.append(e)
+            continue
+        if "fused_gcn_product" in e.name:
+            take("B", pending + [e])
+        else:
+            take("A", pending)
+            key = edge if "edge_dot_kernel" in e.name else gemm if any(
+                s in e.name.lower() for s in ("gemm", "cutlass", "xmma")) \
+                else other
+            split[key] += e.time_range.elapsed_us()
+        pending = []
+    take("A", pending)
+    per_call = {"B": count["B"] / max(calls["fused_gcn_layer"], 1),
+                "A": count["A"] / max(calls["csr_aggregate"], 1)}
     busy = sum(split.values())
     print(f"profile, 2 epochs x {tens.k} partitions: wall "
           f"{wall_us / 2e3:.3f} ms/epoch (profiler on), device busy "
@@ -384,6 +510,14 @@ def profile_training(result, dev):
           f"{1 - busy / wall_us:.3f}, {len(kernels) // 2} kernels/epoch")
     print("profile device ms/epoch by kernel: " + json.dumps(
         {k: round(v / 2e3, 4) for k, v in split.items()}))
+    print("profile device ms/epoch by launch of kernels A and B: "
+          + json.dumps({k: round(v / 2e3, 4) for k, v in parts.items()}))
+    print(f"profile: device launches per wrapper call {json.dumps(per_call)}"
+          f" (calls: B {calls['fused_gcn_layer']}, A "
+          f"{calls['csr_aggregate']})")
+    check(len(kernels) > 0 and calls["fused_gcn_layer"] > 0
+          and calls["csr_aggregate"] > 0 and count["B"] > 0
+          and count["A"] > 0, "the profile saw no launch of kernel A or B")
 
     grads = tree_map(lambda x: torch.full_like(x, 1e-3), params)
     torch.cuda.synchronize()
@@ -393,7 +527,7 @@ def profile_training(result, dev):
     n_adamw = sum(1 for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"profile: one stacked AdamW step = {n_adamw} kernel launches")
-    return len(kernels) > 0
+    return per_call
 
 
 def library_csr(rows, cols, vals, n):
@@ -877,6 +1011,7 @@ def main():
     nn, f = h.shape
     fo, e = w0.shape[1], csr.src.shape[0]
     e_live = int((csr.weight > 0).sum())
+    per_part = kernels_per_partition(tens, w0, b0, dev)
     errs = []
     for activate in (True, False):
         out, _ = kernel_b.launch(h, csr.src, csr.row_ptr, csr.weight, inv,
@@ -884,16 +1019,15 @@ def main():
         ref = kernel_b.plain(h, csr.src, csr.dst, csr.weight, inv, w0, b0,
                              activate=activate)
         errs.append(max_err(out, ref))
-    bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn + f * fo + fo
-                              + nn * fo),
-                         2 * e_live * f + nn * f + 2 * nn * f * fo + nn * fo)
+    bound, by = layer_bound(nn, f, fo, e, e_live, need_agg=False)
     shape = {"N": nn, "F": f, "FO": fo, "E": e, "E_live": e_live,
              "partition": p}
     kernels.append({
         "name": "fused_gcn_layer", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_layer.cu",
         "replaces": "src/repro/kernels/fused_layer.py:79",
-        "launches": launches["fused_gcn_layer"], "max_abs_err": max(errs),
+        "launches": launches["fused_gcn_layer"],
+        "max_abs_err": max(errs),
         "ms": time_ms(lambda: kernel_b.launch(
             h, csr.src, csr.row_ptr, csr.weight, inv, w0, b0)),
         "plain_ms": time_ms(lambda: kernel_b.plain(
@@ -914,15 +1048,27 @@ def main():
               max_err(agg, agg_ref, plain.csr_aggregate_ref(
                   h.abs(), csr.src, csr.dst, csr.weight, nn, inv),
                   "fused layer agg"))
-    bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn + f * fo + fo
-                              + nn * fo + nn * f),
-                         2 * e_live * f + nn * f + 2 * nn * f * fo + nn * fo)
+    bound, by = layer_bound(nn, f, fo, e, e_live, need_agg=True)
+    # every partition launches kernels B and A equally often (3 and 2 per
+    # epoch), so the launch-weighted mean is the mean over partitions
+    heavy = max(per_part, key=lambda r: r["pad_arcs"])
+
+    def spread(key):
+        times = [r[f"{key}_ms"] for r in per_part]
+        row = {"heavy_partition": {k: heavy[k] for k in (
+                   "p", "pad_arcs", f"{key}_ms", f"{key}_err",
+                   f"{key}_bound_ms")},
+               "launch_weighted_mean_ms": statistics.mean(times),
+               "per_partition_ms": times,
+               "worst_over_best": max(times) / min(times)}
+        return row
     kernels.append({
         "name": "fused_gcn_layer_need_agg", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_layer.cu",
         "replaces": "src/repro/kernels/fused_layer.py:79",
         "launches": train_launches["fused_gcn_layer_need_agg"],
-        "max_abs_err": err,
+        "max_abs_err": max([err] + [r["fused_err"] for r in per_part]),
+        **spread("fused"),
         "ms": time_ms(lambda: kernel_b.launch(
             h, csr.src, csr.row_ptr, csr.weight, inv, w0, b0,
             need_agg=True)),
@@ -943,13 +1089,14 @@ def main():
     sp = library_csr(rev_dst, csr.rev_src, rev_w, nn)
     check(torch.allclose(torch.sparse.mm(sp, g), out, rtol=1e-3, atol=1e-3),
           "torch.sparse.mm does not compute the transposed aggregation")
-    bound, by = bound_ms(4 * (nn * f + 2 * e + (nn + 1) + nn * f),
-                         2 * rev_live * f)
+    bound, by = transpose_bound(nn, f, e, rev_live)
     kernels.append({
         "name": "csr_aggregate_transpose", "route": "cuda",
         "source": "src/repro_torch/csrc/csr_aggregate.cu",
         "replaces": "src/repro/kernels/csr_aggregate.py:148",
-        "launches": train_launches["csr_aggregate"], "max_abs_err": err,
+        "launches": train_launches["csr_aggregate"],
+        "max_abs_err": max([err] + [r["transpose_err"] for r in per_part]),
+        **spread("transpose"),
         "ms": time_ms(lambda: kernel_a.launch(g, csr.rev_src,
                                               csr.rev_row_ptr, rev_w)),
         "plain_ms": time_ms(lambda: kernel_a.plain(g, csr.rev_src, rev_dst,
@@ -1025,32 +1172,19 @@ def main():
         "name": "csr_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/csr_aggregate.cu",
         "replaces": "src/repro/kernels/csr_aggregate.py:148",
-        "launches": launches["csr_aggregate"], "max_abs_err": max(errs),
+        "launches": launches["csr_aggregate"],
+        "max_abs_err": max(errs),
         "ms": times[b]["ms"], "plain_ms": times[b]["plain_ms"],
         "bound_ms": bound, "bound_by": by,
         "library_ms": times[b]["library_ms"],
         "shape": {"bucket": b, "N": rows, "F": emb_dim, "E": arcs,
                   "E_live": times[b]["live"]}})
 
-    # per partition: the weight-0 padding arcs all sit in one row (the
-    # assembly parks them at row n_pad-1, source 0), which one warp walks
-    per_part = []
-    for q in range(tens.k):
-        c = tens.csrs[q]
-        hq, invq = tens.features[q], ops.inv_degree(tens.in_degree[q])
-        rw = (c.weight * invq[c.dst.long()])[c.rev_perm].contiguous()
-        per_part.append({
-            "p": q, "pad_arcs": int((c.weight == 0).sum()),
-            "row_max": int(c.row_ptr.diff().max()),
-            "rev_row_max": int(c.rev_row_ptr.diff().max()),
-            "fused_ms": round(time_ms(lambda: kernel_b.launch(
-                hq, c.src, c.row_ptr, c.weight, invq, w0, b0,
-                need_agg=True), iters=5, warmup=1), 4),
-            "transpose_ms": round(time_ms(lambda: kernel_a.launch(
-                hq, c.rev_src, c.rev_row_ptr, rw), iters=5, warmup=1), 4)})
-    print("per partition: " + json.dumps(per_part))
-
-    check(profile_training(trained, dev), "the profiler saw no kernels")
+    per_call = profile_training(trained, dev)
+    for k in kernels:           # the rows of kernels A and B so far
+        owner = "B" if k["name"].startswith("fused_gcn") else "A"
+        if k["name"] != "edge_dot":
+            k["device_launches_per_call"] = per_call[owner]
     del trained, result, batcher, store, on_card
     torch.cuda.empty_cache()
 

@@ -1,7 +1,11 @@
 """Kernel A: CSR neighbour aggregation with a fused mean epilogue.
 
 ``out[d] = inv[d] * sum_{e in row d} w[e] * h[src[e]]`` over a CSR whose
-rows are the destination nodes. The kernel is ``csrc/csr_aggregate.cu``;
+rows are the destination nodes. The kernel is ``csrc/csr_aggregate.cu``
+(two launches: a merge-path gather in which each warp walks at most
+``split(n, e).items`` merged row ends and arcs, then a pass that adds the
+partial sums of rows spanning warps; :func:`split` sizes both from the
+shapes alone, so no launch reads anything back to the host);
 its plain version is :func:`repro_torch.kernels.ref.csr_aggregate_ref`
 (re-exported here as ``plain``). :func:`aggregate` dispatches: CPU tensors
 go to the plain version, CUDA tensors to :func:`launch`.
@@ -14,7 +18,7 @@ and the arcs get no gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,21 +27,54 @@ from ._build import check_tensor
 from .edge_dot import edge_dot
 from .ref import csr_aggregate_ref as plain
 
-__all__ = ["AggregateFn", "aggregate", "transpose", "launch", "plain",
-           "launches"]
+__all__ = ["AggregateFn", "Split", "aggregate", "transpose", "launch",
+           "launch_into", "plain", "launches", "split", "scratch"]
 
-#: Kernel launches since the last reset (see ``ops.reset_launch_counts``).
+#: Kernel calls since the last reset (see ``ops.reset_launch_counts``).
 launches = 0
 
+#: The gather's warps: enough to fill the card's 132 SMs (16 warps each)
+#: with one wave, and at least ``MIN_ITEMS``, at most ``MAX_ITEMS`` merged
+#: items per warp. ``MAX_ITEMS`` bounds the arcs any warp walks.
+TARGET_WARPS = 2048
+MIN_ITEMS = 16
+MAX_ITEMS = 128
+
 _lib_cache = None
+
+
+class Split(NamedTuple):
+    """The merge-path work split: ``items`` merged row ends and arcs per
+    warp (K), and ``warps`` = ceil((n + e) / K), one partial slot each."""
+    items: int
+    warps: int
+
+
+def split(n: int, e: int) -> Split:
+    """The work split of an ``n``-row, ``e``-arc CSR (shapes only)."""
+    total = n + e
+    items = min(MAX_ITEMS, max(MIN_ITEMS, -(-total // TARGET_WARPS)))
+    return Split(items, -(-total // items))
+
+
+def scratch(sp: Split, f: int, device: torch.device
+            ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """One allocation for the partial sums of the rows the split cuts, and
+    the addresses in it of ``tail`` [warps, f] f32, ``head`` [warps, f] f32
+    and ``head_row`` [warps] int32 (the tensor must outlive the launch)."""
+    buf = torch.empty(sp.warps * (2 * f + 1), dtype=torch.float32,
+                      device=device)
+    tail = buf.data_ptr()
+    part = 4 * sp.warps * f
+    return buf, (tail, tail + part, tail + 2 * part)
 
 
 def _lib():
     global _lib_cache
     if _lib_cache is None:
         lib = _build.load("csr_aggregate")
-        lib.csr_aggregate_f32.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.csr_aggregate_f32.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.csr_aggregate_f32.restype = ctypes.c_int
         lib.csr_aggregate_error.argtypes = [ctypes.c_int]
         lib.csr_aggregate_error.restype = ctypes.c_char_p
@@ -54,6 +91,17 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
     [N+1] int32 their row offsets (``ops.to_csr`` builds all three).
     """
     global launches
+    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    launch_into(out, h, src, row_ptr, weight, inv_scale)
+    launches += 1
+    return out
+
+
+def launch_into(out: torch.Tensor, h: torch.Tensor, src: torch.Tensor,
+                row_ptr: torch.Tensor, weight: torch.Tensor,
+                inv_scale: Optional[torch.Tensor] = None) -> None:
+    """:func:`launch` writing into ``out`` [N, F] f32, without counting a
+    call: kernel B's wrapper fills its aggregate with it."""
     device = h.device
     if device.type != "cuda":
         raise ValueError(f"csr_aggregate kernel needs CUDA tensors, "
@@ -68,7 +116,9 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
     check_tensor("weight", weight, torch.float32, (e,), device)
     if inv_scale is not None:
         check_tensor("inv_scale", inv_scale, torch.float32, (n,), device)
-    out = torch.empty((n, f), dtype=torch.float32, device=device)
+    check_tensor("out", out, torch.float32, (n, f), device)
+    sp = split(n, e)
+    buf, parts = scratch(sp, f, device)     # buf lives past the launch
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -76,12 +126,10 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
             h.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
             weight.data_ptr(),
             inv_scale.data_ptr() if inv_scale is not None else None,
-            out.data_ptr(), n, f, stream)
+            out.data_ptr(), *parts, n, e, f, sp.items, sp.warps, stream)
     if err != 0:
         raise RuntimeError("csr_aggregate kernel launch failed: "
                            + lib.csr_aggregate_error(err).decode())
-    launches += 1
-    return out
 
 
 def aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

@@ -1,11 +1,16 @@
-"""Kernel B: one fused GCN layer — CSR mean aggregation, dense transform,
-bias and relu in one launch.
+"""Kernel B: one GCN layer — CSR mean aggregation, dense transform, bias
+and relu in one call.
 
-``out = act((inv ⊙ Σ_e w[e]·h[src[e]]→dst[e]) @ W + b)``. The kernel is
-``csrc/fused_layer.cu``; its plain version is
+``out = act((inv ⊙ Σ_e w[e]·h[src[e]]→dst[e]) @ W + b)``. The call is
+kernel A (:func:`repro_torch.kernels.csr_aggregate.launch_into`, its
+merge-path gather and partial-sum pass) writing the aggregate, then the
+product of ``csrc/fused_layer.cu`` (f32 on the CUDA cores, k in order, so
+that it rounds as the CPU path's product does) with bias and relu. Its
+plain version is
 :func:`repro_torch.kernels.ref.fused_gcn_reference` (re-exported here as
-``plain``). The aggregate is written out only when ``need_agg`` is set
-(a backward pass needs it for dW; inference does not). :func:`fused`
+``plain``). The aggregate is returned only when ``need_agg`` is set (a
+backward pass needs it for dW; inference does not, and it goes to scratch
+memory). :func:`fused`
 dispatches: CPU tensors go to the plain version, CUDA tensors to
 :func:`launch`.
 
@@ -25,16 +30,18 @@ import torch
 from . import _build
 from ._build import check_tensor
 from .csr_aggregate import plain as aggregate_plain
+from .csr_aggregate import launch_into as aggregate_into
 from .csr_aggregate import transpose
 from .edge_dot import edge_dot
 from .ref import fused_gcn_reference as plain
 from .ref import gcn_epilogue
 
 __all__ = ["FusedLayerFn", "fused", "launch", "plain", "launches",
-           "launches_need_agg", "smem_bytes"]
+           "launches_need_agg"]
 
-#: Kernel launches since the last reset (see ``ops.reset_launch_counts``),
-#: and those of them that wrote the aggregate (``need_agg``).
+#: Kernel calls since the last reset (see ``ops.reset_launch_counts``),
+#: one per layer call (its aggregation does not count as a kernel A call),
+#: and those of them that returned the aggregate (``need_agg``).
 launches = 0
 launches_need_agg = 0
 
@@ -45,21 +52,13 @@ def _lib():
     global _lib_cache
     if _lib_cache is None:
         lib = _build.load("fused_layer")
-        lib.fused_gcn_layer_f32.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.fused_gcn_layer_f32.restype = ctypes.c_int
-        lib.fused_gcn_smem_bytes.argtypes = [ctypes.c_int]
-        lib.fused_gcn_smem_bytes.restype = ctypes.c_int
+        lib.fused_gcn_product_f32.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_gcn_product_f32.restype = ctypes.c_int
         lib.fused_gcn_error.argtypes = [ctypes.c_int]
         lib.fused_gcn_error.restype = ctypes.c_char_p
         _lib_cache = lib
     return _lib_cache
-
-
-def smem_bytes(f: int) -> int:
-    """Shared memory one block of the kernel takes for input width ``f``."""
-    return int(_lib().fused_gcn_smem_bytes(int(f)))
 
 
 def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
@@ -78,39 +77,23 @@ def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
                          f"{tuple(w.shape)}")
     n, f = h.shape
     fo = w.shape[1]
-    e = src.shape[0]
-    check_tensor("h", h, torch.float32, (n, f), device)
-    check_tensor("src", src, torch.int32, (e,), device)
-    check_tensor("row_ptr", row_ptr, torch.int32, (n + 1,), device)
-    check_tensor("weight", weight, torch.float32, (e,), device)
-    if inv_scale is not None:
-        check_tensor("inv_scale", inv_scale, torch.float32, (n,), device)
     check_tensor("w", w, torch.float32, (f, fo), device)
     check_tensor("b", b, torch.float32, (fo,), device)
-    limit = torch.cuda.get_device_properties(device) \
-        .shared_memory_per_block_optin
-    if smem_bytes(f) > limit:
-        raise ValueError(f"input width F={f} needs {smem_bytes(f)} bytes of "
-                         f"shared memory per block; the card allows {limit}")
+    agg = torch.empty((n, f), dtype=torch.float32, device=device)
+    aggregate_into(agg, h, src, row_ptr, weight, inv_scale)
     out = torch.empty((n, fo), dtype=torch.float32, device=device)
-    agg = (torch.empty((n, f), dtype=torch.float32, device=device)
-           if need_agg else None)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_gcn_layer_f32(
-            h.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
-            weight.data_ptr(),
-            inv_scale.data_ptr() if inv_scale is not None else None,
-            w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            agg.data_ptr() if agg is not None else None,
-            n, f, fo, int(bool(activate)), stream)
+        err = lib.fused_gcn_product_f32(
+            agg.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            f, fo, int(bool(activate)), stream)
     if err != 0:
         raise RuntimeError("fused_gcn_layer kernel launch failed: "
                            + lib.fused_gcn_error(err).decode())
     launches += 1
     launches_need_agg += int(need_agg)
-    return out, agg
+    return out, agg if need_agg else None
 
 
 def fused(h: torch.Tensor, csr, weight: torch.Tensor,

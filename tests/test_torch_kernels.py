@@ -14,8 +14,15 @@ version on the card (3e-5) and skip where there is none.
 Cases: N, F, E off every tile size; duplicate destinations; zero-degree
 rows; unsorted destinations; weight-0 padding arcs parked at ``n_pad-1``
 (the assembly's convention) and at row 0 (the reference's alignment
-padding); ``inv_scale`` given and absent; ``activate`` on and off; FO not
-a multiple of 128.
+padding); skewed rows: a hub row of 3,000 live arcs, and a third of the
+arcs as weight-0 padding parked at ``n-1`` with source 0, as the assembly
+parks them; ``inv_scale`` given and absent; ``activate`` on and off; FO
+not a multiple of 128.
+
+The CUDA kernels split the work by merge path (``csrc/csr_rows.cuh``); a
+numpy walk of the same split checks on the CPU that every arc is summed
+once, in CSR order, by warps that walk at most ``2 * split(n, e).items``
+items, and that the partial sums of cut rows add up to the plain result.
 """
 import numpy as np
 import pytest
@@ -29,7 +36,7 @@ from repro_torch.kernels import ops                            # noqa: E402
 from repro_torch.kernels import ref as plain_ref               # noqa: E402
 
 TOL = dict(rtol=3e-5, atol=3e-5)
-CASES = ("sorted", "unsorted", "pad_last", "pad_row0")
+CASES = ("sorted", "unsorted", "pad_last", "pad_row0", "hub", "pad_heavy")
 
 
 def _graph(case, n=100, f=24, e=700, fo=50, seed=3):
@@ -40,12 +47,18 @@ def _graph(case, n=100, f=24, e=700, fo=50, seed=3):
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n // 2, e)
     w = rng.random(e).astype(np.float32)
+    if case == "hub":       # one live row with a few thousand arcs
+        hub = 3000
+        src = np.concatenate([src, rng.integers(0, n, hub)])
+        dst = np.concatenate([dst, np.full(hub, 7)])
+        w = np.concatenate([w, rng.uniform(0.1, 1.0, hub)
+                            .astype(np.float32)])
     if case != "unsorted":
         dst = np.sort(dst)
-    if case in ("pad_last", "pad_row0"):
-        pad = 37
+    if case in ("pad_last", "pad_row0", "pad_heavy"):
+        pad = e // 2 if case == "pad_heavy" else 37   # a third of E, or 37
         src = np.concatenate([src, np.zeros(pad, np.int64)])
-        park = n - 1 if case == "pad_last" else 0
+        park = 0 if case == "pad_row0" else n - 1
         dst = np.concatenate([dst, np.full(pad, park)])
         w = np.concatenate([w, np.zeros(pad, np.float32)])
     deg = np.bincount(dst, weights=(w > 0), minlength=n).astype(np.float32)
@@ -243,6 +256,131 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         edge_kernel.launch(_t(h), _t(h), csr.src, csr.dst)
 
 
+def _merge_search(row_ptr, diag, n, e):
+    """(rows ended, arcs consumed) at merged item ``diag``: what
+    ``merge_search`` of ``csrc/csr_rows.cuh`` finds (by a 16-ary search
+    there, by bisection here)."""
+    lo, hi = max(diag - e, 0), min(diag, n)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if row_ptr[mid + 1] <= diag - mid - 1:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo, diag - lo
+
+
+def _merge_path_walk(h, src, row_ptr, w, inv, sp):
+    """The kernels' two passes in numpy (``gather_pass``, ``fixup_pass``).
+    Returns the aggregate, the warps that summed each arc, and the items
+    each warp walked."""
+    n, f = h.shape
+    e = src.shape[0]
+    k = sp.items
+    out = np.full((n, f), np.nan, np.float32)
+    tail = np.full((sp.warps, f), np.nan, np.float32)
+    head = tail.copy()
+    head_row = np.full(sp.warps, -1)
+    walked_by = [[] for _ in range(e)]
+    walked = np.zeros(sp.warps, int)
+    scale = np.ones(n, np.float32) if inv is None else inv
+
+    def whole(r):           # ends within its first warp's range or the next
+        return r + row_ptr[r + 1] < ((r + row_ptr[r]) // k + 2) * k
+
+    for g in range(sp.warps):
+        d0, d1 = g * k, min(g * k + k, n + e)
+        i0, j0 = _merge_search(row_ptr, d0, n, e)
+        i1, j1 = _merge_search(row_ptr, d1, n, e)
+        assert (i1 - i0) + (j1 - j0) == d1 - d0 <= k
+        r, j, head_r = i0, j0, -1
+        if i0 < i1 and row_ptr[i0] < j0:
+            if whole(i0):
+                r, j = i0 + 1, row_ptr[i0 + 1]
+            else:
+                head_r = i0
+        done, stop, open_tail = i1, j1, False
+        if i1 < n and row_ptr[i1] < j1:
+            if row_ptr[i1] >= j0 and whole(i1):
+                done, stop = i1 + 1, row_ptr[i1 + 1]
+            else:
+                open_tail = True
+        walked[g] = (done - r) + (stop - j)
+        acc = np.zeros(f, np.float32)
+        for a in range(j, stop):
+            while r < done and row_ptr[r + 1] <= a:
+                if r == head_r:
+                    head[g] = acc
+                else:
+                    out[r] = acc * scale[r]
+                acc, r = np.zeros(f, np.float32), r + 1
+            acc = acc + w[a] * h[src[a]]
+            walked_by[a].append(g)
+        while r < done:
+            if r == head_r:
+                head[g] = acc
+            else:
+                out[r] = acc * scale[r]
+            acc, r = np.zeros(f, np.float32), r + 1
+        if open_tail:
+            tail[g] = acc
+        head_row[g] = head_r
+    for g in np.flatnonzero(head_row >= 0):
+        r = head_row[g]
+        gs = (r + row_ptr[r]) // k
+        out[r] = (tail[gs:g].sum(0) + head[g]) * scale[r]
+    return out, walked_by, walked
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("with_inv", [True, False])
+def test_merge_path_split_sums_every_arc_once(case, with_inv):
+    """The kernels' work split: each warp's range is at most ``items``
+    merged items and it walks at most twice that (a row that ends in the
+    next range is walked whole by its first warp), every arc is summed by
+    exactly one warp, warps take the arcs in CSR order, and the partial
+    sums of cut rows give the plain result (3e-5)."""
+    h, src, dst, w, deg, *_ = _graph(case)
+    n = h.shape[0]
+    inv = (1.0 / np.maximum(deg, 1.0)).astype(np.float32) if with_inv \
+        else None
+    csr = ops.to_csr(_t(src), _t(dst), _t(w), n)
+    row_ptr, e = csr.row_ptr.numpy().astype(np.int64), src.shape[0]
+    sp = agg_kernel.split(n, e)
+    out, walked_by, walked = _merge_path_walk(h, csr.src.numpy(), row_ptr,
+                                              csr.weight.numpy(), inv, sp)
+    assert all(len(g) == 1 for g in walked_by)
+    assert (np.diff([g[0] for g in walked_by]) >= 0).all()
+    assert walked.max() <= 2 * sp.items
+    assert max(np.diff(row_ptr)) > sp.items or case not in ("hub",
+                                                             "pad_heavy")
+    expect = agg_kernel.plain(_t(h), csr.src, csr.dst, csr.weight, n,
+                              None if inv is None else _t(inv))
+    np.testing.assert_allclose(out, expect.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n,e", [(1, 0), (33, 32), (264, 256),
+                                 (79344, 325288), (10 ** 7, 10 ** 8)])
+def test_split_bounds_the_items_per_warp(n, e):
+    sp = agg_kernel.split(n, e)
+    assert agg_kernel.MIN_ITEMS <= sp.items <= agg_kernel.MAX_ITEMS
+    assert (sp.warps - 1) * sp.items < n + e <= sp.warps * sp.items
+    if n + e >= agg_kernel.TARGET_WARPS * agg_kernel.MIN_ITEMS:
+        assert sp.warps >= min(agg_kernel.TARGET_WARPS,
+                               (n + e) // agg_kernel.MAX_ITEMS)
+
+
+def _assert_sum_close(out, expect, abs_sum):
+    """``|out - expect| <= 3e-5 + 3e-5 * abs_sum`` for a sum whose terms
+    cancel, with ``abs_sum`` the same sum over absolute terms (the scale of
+    its f32 rounding error), as ``chip_smoke.py`` holds the kernels."""
+    assert torch.isfinite(out).all()
+    bad = (out - expect).abs() > TOL["atol"] + TOL["rtol"] * abs_sum
+    assert not bad.any(), (
+        f"{int(bad.sum())} entries off; max abs err "
+        f"{float((out - expect).abs().max()):.3e}")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -264,6 +402,13 @@ def test_cuda_kernels_match_plain(cuda, case, shape):
         out = agg_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight, scale)
         expect = agg_kernel.plain(hc, csr.src, csr.dst, csr.weight, n,
                                   scale)
+        if case == "hub":
+            # the hub row sums 3,000 terms of both signs: f32 rounding of
+            # its partial sums in another order scales with their absolute
+            # sum, not with the (cancelled) result
+            _assert_sum_close(out, expect, agg_kernel.plain(
+                hc.abs(), csr.src, csr.dst, csr.weight, n, scale))
+            continue
         torch.testing.assert_close(out, expect, **TOL)
     for activate in (True, False):
         out, agg = fused_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight,
@@ -328,3 +473,142 @@ def test_cuda_backward_matches_plain(cuda, case, shape):
         for a, e_ in zip(torch.autograd.grad((out * gh).sum(), mine),
                          torch.autograd.grad((expect * gh).sum(), plain)):
             torch.testing.assert_close(a, e_, **TOL)
+
+
+def _skewed(n=3000, f=128, fo=128, seed=5):
+    """Rows around the merge-path split ``K = split(n, e).items``: a hub of
+    several K arcs, rows of K-1, K and K+1 arcs, a third of the arcs as
+    weight-0 padding parked at ``n-1`` with source 0, empty rows, and short
+    random rows; arcs sorted by destination."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 6, n) * (rng.random(n) < 0.7)
+    k = agg_kernel.MAX_ITEMS
+    for _ in range(8):                    # K depends on E: settle it
+        deg[[3, 11, 12, 13]] = (7 * k + 5, k - 1, k, k + 1)
+        deg[n - 1] = 0
+        live = int(deg.sum())
+        deg[n - 1] = live // 2
+        k_new = agg_kernel.split(n, int(deg.sum())).items
+        if k_new == k:
+            break
+        k = k_new
+    dst = np.repeat(np.arange(n), deg)
+    e = dst.size
+    src = rng.integers(0, n, e)
+    w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+    pad = dst == n - 1
+    src[pad], w[pad] = 0, 0.0
+    h = rng.normal(size=(n, f)).astype(np.float32)
+    wmat = (rng.normal(size=(f, fo)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(fo,)) * 0.1).astype(np.float32)
+    in_deg = np.bincount(dst, weights=(w > 0), minlength=n).astype(np.float32)
+    return h, src.astype(np.int32), dst.astype(np.int32), w, in_deg, wmat, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3000, 128, 128), (2000, 200, 130),
+                                   (500, 24, 50)])
+def test_cuda_skewed_rows_match_plain(cuda, shape):
+    """Forward and backward of both kernels on rows longer than the split
+    several times over, rows of exactly K and K+1 arcs and empty rows,
+    against the plain versions at 3e-5, with and without ``inv``."""
+    n, f, fo = shape
+    h, src, dst, w, deg, wmat, b = _skewed(n, f, fo)
+    sp = agg_kernel.split(n, src.size)
+    assert np.bincount(dst, minlength=n).max() > 5 * sp.items
+    inv = ops.inv_degree(_t(deg, cuda))
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc, wc, bc = _t(h, cuda), _t(wmat, cuda), _t(b, cuda)
+    ha, wa, ba = hc.abs(), wc.abs(), bc.abs()
+    for scale in (inv, None):
+        expect_agg = agg_kernel.plain(hc, csr.src, csr.dst, csr.weight, n,
+                                      scale)
+        abs_agg = agg_kernel.plain(ha, csr.src, csr.dst, csr.weight, n,
+                                   scale)
+        _assert_sum_close(
+            agg_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight, scale),
+            expect_agg, abs_agg)
+        out, agg = fused_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight,
+                                       scale, wc, bc, activate=False,
+                                       need_agg=True)
+        _assert_sum_close(agg, expect_agg, abs_agg)
+        _assert_sum_close(
+            out, fused_kernel.plain(hc, csr.src, csr.dst, csr.weight, scale,
+                                    wc, bc, activate=False),
+            fused_kernel.plain(ha, csr.src, csr.dst, csr.weight, scale, wa,
+                               ba, activate=False))
+    g = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(n, fo)).astype(np.float32), device=cuda)
+
+    def grads(x, wm, bb, cot, relu):
+        """Gradients of <layer(x), cot> through the plain forward with the
+        kernel forward's relu decisions."""
+        leaves = [t.clone().requires_grad_() for t in (x, wm, bb)]
+        z = plain_ref.fused_gcn_reference(leaves[0], csr.src, csr.dst,
+                                          csr.weight, inv, leaves[1],
+                                          leaves[2], activate=False)
+        return torch.autograd.grad((z * relu * cot).sum(), leaves)
+    mine = [t.clone().requires_grad_() for t in (hc, wc, bc)]
+    out = ops.fused_gcn_layer(mine[0], csr, inv, mine[1], mine[2],
+                              activate=True)
+    relu = (out > 0).detach()
+    for a, e_, s_ in zip(torch.autograd.grad((out * g).sum(), mine),
+                         grads(hc, wc, bc, g, relu),
+                         grads(ha, wa, ba, g.abs(), relu)):
+        _assert_sum_close(a, e_, s_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(700, 512, 5000, 128),
+                                   (300, 1000, 2000, 300),
+                                   (130, 2048, 900, 7)])
+def test_cuda_fused_layer_takes_wide_inputs(cuda, shape):
+    """Kernel B's product walks F in chunks, so its shared memory does not
+    grow with the input width: F up to 2,048 (and FO over several column
+    tiles) against the plain version at 3e-5. One layer call counts once
+    under kernel B and not under kernel A, whose kernel fills its
+    aggregate."""
+    n, f, e, fo = shape
+    h, src, dst, w, deg, wmat, b = _graph("sorted", n, f, e, fo)
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc, inv = _t(h, cuda), ops.inv_degree(_t(deg, cuda))
+    wc, bc = _t(wmat, cuda), _t(b, cuda)
+    for activate in (True, False):
+        ops.reset_launch_counts()
+        out, agg = fused_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight,
+                                       inv, wc, bc, activate=activate,
+                                       need_agg=True)
+        counts = ops.launch_counts()
+        assert (counts["fused_gcn_layer"], counts["csr_aggregate"]) == (1, 0)
+        expect_agg = agg_kernel.plain(hc, csr.src, csr.dst, csr.weight, n,
+                                      inv)
+        torch.testing.assert_close(agg, expect_agg, **TOL)
+        z = plain_ref.gcn_epilogue(expect_agg, wc, bc, False)
+        za = plain_ref.gcn_epilogue(expect_agg.abs(), wc.abs(), bc.abs(),
+                                    False)
+        if activate:
+            # the kernel's relu decisions, for a z that rounds next to 0
+            z, za = z * (out > 0), za * (out > 0)
+        _assert_sum_close(out, z, za)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_are_bitwise_deterministic(cuda):
+    """Two calls of each kernel on skewed rows give bitwise-equal outputs:
+    no atomics, partial sums added in a fixed order."""
+    h, src, dst, w, deg, wmat, b = _skewed()
+    n = h.shape[0]
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc, inv = _t(h, cuda), ops.inv_degree(_t(deg, cuda))
+    rev_w = csr.weight.index_select(0, csr.rev_perm).contiguous()
+    calls = {
+        "A": lambda: agg_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight,
+                                       inv),
+        "A transposed": lambda: agg_kernel.launch(hc, csr.rev_src,
+                                                  csr.rev_row_ptr, rev_w),
+        "B": lambda: torch.cat(fused_kernel.launch(
+            hc, csr.src, csr.row_ptr, csr.weight, inv, _t(wmat, cuda),
+            _t(b, cuda), need_agg=True), dim=1)}
+    for name, call in calls.items():
+        first, second = call(), call()
+        assert torch.equal(first, second), name
