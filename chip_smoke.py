@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GCN serving, GCN training and LM serving paths
-on one NVIDIA GPU.
+"""Drive the PyTorch port's GCN serving, GCN training, the paper's
+partitioner comparison, Proteins training and LM serving paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -25,11 +26,19 @@ Phases, each fatal on failure:
    launched during training, and the trained test accuracy must beat both
    chance and the seeded run's;
 6. training on the card against the CPU path from the same initial
-   parameters with dropout 0 (karate, k = 4, 60 epochs; arxiv-like at
-   2,000 nodes, 20 epochs): per-epoch losses within 1e-4 and the pooled
-   table within 1e-3 (abs + rel), the parity gate of the port against the
-   reference: sums run in another order on the card and the difference
-   compounds through every AdamW step;
+   parameters with dropout 0, k = 4: karate GCN for 60 epochs; arxiv-like
+   at 2,000 nodes for 20 epochs with GCN, SAGE, GCN ``low_memory``, GCN
+   ``integrate`` model_avg and ensemble; proteins-like at 2,000 nodes
+   (multilabel) for 20 epochs with GCN and SAGE. Through
+   ``repro_torch.tools.training_parity.compare_training``: per-epoch
+   losses within 1e-4 over the whole run (SAGE on arxiv-like: over the
+   first 2 epochs) and the pooled table after 2 epochs within 1e-3 (abs +
+   rel). Sums run in another order on the card, and the difference
+   compounds through every AdamW step: after 20 epochs the table moves by
+   75-81x that tolerance under any legitimate change of rounding (an f64
+   product, a reversed-chunk f32 product), and SAGE's losses on arxiv-like
+   by 2.0-2.4x at epochs 6-7, so those are printed, not held (ROADMAP
+   C.1). Kernels A and B must launch in every card run;
 7. gradients at the main path's largest partition: both kernels'
    ``autograd.Function``s against autograd of the plain forward, and one
    backward of the whole GCN with arc-weight gradients, the path of its
@@ -63,7 +72,24 @@ Phases, each fatal on failure:
    step's logits, kernel against plain;
 11. kernel D against its plain version, timed, at the decode_32k layer
    shape (B 128, S 32,768, H 32, Hkv 8, D 128) in bf16 and (B 16) in f32,
-   and at long_500k's sliding ring (B 1, S 8,192).
+   and at long_500k's sliding ring (B 1, S 8,192);
+12. the paper's partitioner comparison: arxiv-like at 40,000 nodes (128
+   features, 40 classes), k = 8, repli, for random, lpa, metis, lpa+f,
+   metis+f and leiden_fusion in turn: the partition on the host through
+   the artifact cache (wall seconds), its report (cut, components,
+   isolated nodes, balance, replication), the 3 x 128 GCN trained for 60
+   epochs on the card (dropout 0.3, lr 5e-3) and the classifier for 150;
+   one row per method, and the phase's wall seconds. Every run's losses
+   must be finite and kernels A and B must launch in it; lpa+f, metis+f
+   and leiden_fusion must give one component and no isolated node in
+   every part (the paper's guarantee on a connected graph). On the random
+   and LPA partitions (isolated nodes, many halo rows, another e_pad)
+   kernels B and A are held against their plain versions on every
+   partition, as in phase 8, and timed beside their bound, their plain
+   version and ``torch.sparse.mm``;
+13. proteins-like at its default (6,000 nodes, 112 binary tasks, average
+   degree 80), k = 8, GCN and SAGE for 60 epochs: the test mean ROC-AUC
+   must beat 0.5 and the seeded, untrained run's.
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
@@ -108,8 +134,6 @@ TOL = dict(rtol=3e-5, atol=3e-5)
 ARXIV_SCALE = 169343 / 40000
 QUERIES = 2000
 MAX_NEIGHBORS = 32
-LOSS_TOL = 1e-4        # card vs CPU training, abs + rel
-TABLE_TOL = 1e-3
 BF16_TOL = 2e-2        # kernel D in bf16, abs + rel
 LM_BF16_TOL = 0.1      # LM logits kernel vs plain, bf16: max and rms
 LM_F32_TOL = 1e-4      # the same in f32, abs + rel
@@ -188,7 +212,7 @@ def replay_trained_bundle(result, cfg, dev, label):
     from repro_torch.serving.store import EmbeddingStore, classify
     store = EmbeddingStore.load(
         result.serving_path, device=dev,
-        expect_fingerprint=cfg.partitioner.fingerprint(),
+        expect_fingerprint=result.spec.fingerprint(),
         expect_graph=graph_fingerprint(result.dataset.graph))
     batcher = ContinuousBatcher(store, cache=LruNodeCache(512),
                                 max_batch=64, max_wait_ms=2.0,
@@ -219,29 +243,64 @@ def key_accuracy(result):
                   == ds.labels[ds.test_mask]).mean())
 
 
+# phase 6: (label, dataset, dataset kwargs, epochs, PipelineConfig fields,
+# whether the losses of every epoch are held). GraphSAGE on arxiv-like
+# leaves the loss tolerance at epochs 6-7 under legitimate rounding (an f64
+# or reversed-chunk product on the CPU: 2.0-2.4x), so its losses are held
+# over the table's 2 epochs and the rest is printed
+# (repro_torch.tools.training_parity).
+PARITY_RUNS = (
+    ("karate gcn", "karate", {}, 60, {}, True),
+    ("arxiv-like 2k gcn", "arxiv-like", {"n": 2000}, 20, {}, True),
+    ("arxiv-like 2k sage", "arxiv-like", {"n": 2000}, 20, {"model": "sage"},
+     False),
+    ("arxiv-like 2k gcn low-memory", "arxiv-like", {"n": 2000}, 20,
+     {"low_memory": True}, True),
+    ("arxiv-like 2k gcn model_avg", "arxiv-like", {"n": 2000}, 20,
+     {"integrate": "model_avg"}, True),
+    ("arxiv-like 2k gcn ensemble", "arxiv-like", {"n": 2000}, 20,
+     {"integrate": "ensemble"}, True),
+    ("proteins-like 2k gcn multilabel", "proteins-like", {"n": 2000}, 20, {},
+     True),
+    ("proteins-like 2k sage multilabel", "proteins-like", {"n": 2000}, 20,
+     {"model": "sage"}, True),
+)
+
+
 def train_on_card_vs_cpu(dev):
-    """Phase 6: the training pipeline on the card against the CPU path."""
-    import numpy as np
+    """Phase 6: the training pipeline on the card against the CPU path,
+    through ``repro_torch.tools.training_parity.compare_training``: the
+    per-epoch losses within 1e-4 (of the full run, or of the first 2
+    epochs where ``PARITY_RUNS`` says so) and the pooled table after 2
+    epochs within 1e-3 (abs + rel); the rest is printed, not held."""
+    from repro_torch.kernels import ops
     from repro_torch.pipeline.pipeline import PipelineConfig, run_training
-    for name, kwargs, epochs in (("karate", {}, 60),
-                                 ("arxiv-like", {"n": 2000}, 20)):
+    from repro_torch.tools.training_parity import (TABLE_EPOCHS,
+                                                   compare_training)
+    rows = {}
+    for label, name, kwargs, epochs, fields, all_losses in PARITY_RUNS:
         cfg = PipelineConfig(dataset=name, k=4, dropout=0.0, epochs=epochs,
-                             classifier_epochs=0, dataset_kwargs=kwargs)
-        card, cpu = run_training(cfg, device=dev), \
-            run_training(cfg, device="cpu")
-        loss_err = float(np.abs(card.losses - cpu.losses).max())
-        table = card.embeddings.cpu()
-        table_err = float((table - cpu.embeddings).abs().max())
-        print(f"train card vs cpu [{name}, k=4, {epochs} epochs]: max abs "
-              f"loss err {loss_err:.3e}, table err {table_err:.3e}; loss "
-              f"epoch 0 {cpu.losses[0].mean():.4f} -> last "
-              f"{cpu.losses[-1].mean():.4f}")
-        check(np.allclose(card.losses, cpu.losses, rtol=LOSS_TOL,
-                          atol=LOSS_TOL),
-              f"{name}: per-epoch losses on the card disagree with the CPU")
-        check(bool(np.allclose(table.numpy(), cpu.embeddings.numpy(),
-                               rtol=TABLE_TOL, atol=TABLE_TOL)),
-              f"{name}: the trained table on the card disagrees with the CPU")
+                             classifier_epochs=0, dataset_kwargs=kwargs,
+                             **fields)
+        ops.reset_launch_counts()
+        row = compare_training(cfg, lambda c: run_training(c, device=dev),
+                               lambda c: run_training(c, device="cpu"),
+                               None if all_losses else TABLE_EPOCHS)
+        launches = ops.launch_counts()
+        row["launches"] = {k: launches[k] for k in (
+            "fused_gcn_layer_need_agg", "csr_aggregate")}
+        print(f"train card vs cpu [{label}, k=4]: {json.dumps(row)}")
+        check(all(row["launches"].values()),
+              f"{label}: kernels A and B did not both launch: {launches}")
+        check(row["loss_ratio"] <= 1.0,
+              f"{label}: per-epoch losses of the first {row['loss_epochs']} "
+              f"epochs on the card disagree with the CPU "
+              f"({row['loss_ratio']:.2f}x the tolerance)")
+        check(row["table_ratio"] <= 1.0,
+              f"{label}: the table after {row['table_epochs']} epochs on the "
+              f"card disagrees with the CPU ({row['table_ratio']:.2f}x)")
+        rows[label] = row
+    return rows
 
 
 def gradients_against_plain(tens, params, dev):
@@ -430,7 +489,12 @@ def kernels_per_partition(tens, w0, b0, dev):
                "transpose_library_ms": time_ms(
                    lambda: torch.sparse.mm(sp, g), iters=10),
                "fused_ms": time_ms(fused, iters=10),
-               "transpose_ms": time_ms(transpose, iters=10)}
+               "transpose_ms": time_ms(transpose, iters=10),
+               "fused_plain_ms": time_ms(lambda: plain.gcn_epilogue(
+                   plain.csr_aggregate_ref(h, c.src, c.dst, c.weight, nn,
+                                           inv), w0, b0, True), iters=10),
+               "transpose_plain_ms": time_ms(lambda: kernel_a.plain(
+                   g, c.rev_src, rev_dst, rev_w, nn), iters=10)}
         rows.append(row)
         print(f"partition {q}: {json.dumps(row)}")
     return rows
@@ -859,6 +923,150 @@ def kernel_d_against_plain(dev):
     return rows
 
 
+COMPARISON_METHODS = ("random", "lpa", "metis", "lpa+f", "metis+f",
+                      "leiden_fusion")
+CONNECTED_METHODS = ("lpa+f", "metis+f", "leiden_fusion")
+
+
+def per_partition_summary(per_part):
+    """Means over the partitions (each launches kernels A and B equally
+    often) of ``kernels_per_partition``'s rows, and the worst error."""
+    keys = ("fused_ms", "fused_plain_ms", "fused_bound_ms", "transpose_ms",
+            "transpose_plain_ms", "transpose_bound_ms",
+            "transpose_library_ms")
+    row = {f"{k}_mean": statistics.mean(r[k] for r in per_part)
+           for k in keys}
+    row.update(fused_err=max(r["fused_err"] for r in per_part),
+               transpose_err=max(r["transpose_err"] for r in per_part),
+               pad_arcs=[r["pad_arcs"] for r in per_part],
+               e_live=[r["e_live"] for r in per_part],
+               fused_bound_by=per_part[0]["fused_bound_by"],
+               transpose_bound_by=per_part[0]["transpose_bound_by"])
+    return row
+
+
+def partitioner_comparison(dev, cache_dir):
+    """Phase 12: the paper's comparison on the card. Arxiv-like at 40,000
+    nodes, k = 8, repli; for each method the partition on the host (through
+    the artifact cache), its report, 60 epochs of the 3 x 128 GCN (dropout
+    0.3, lr 5e-3) and 150 of the classifier. Gates: finite losses, kernels
+    A and B launched in every run, one component and no isolated node in
+    every part of the connected methods; kernels A and B against their
+    plain versions on every partition of the random and LPA runs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.pipeline.datasets import get_dataset
+    from repro_torch.pipeline.pipeline import PipelineConfig, run_training
+    t0 = time.perf_counter()
+    ds = get_dataset("arxiv-like")
+    rows, kernel_rows = {}, {}
+    for method in COMPARISON_METHODS:
+        cfg = PipelineConfig(dataset="arxiv-like", method=method, k=8,
+                             scheme="repli", cache_dir=cache_dir)
+        ops.reset_launch_counts()
+        result = run_training(cfg, device=dev, ds=ds)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        p, t = result.partition, result.timings
+        row = {"cut_pct": p["edge_cut_pct"],
+               "components": p["total_components"],
+               "max_components": p["max_components"],
+               "isolated": p["total_isolated"],
+               "node_balance": p["node_balance"],
+               "replication": p["replication_factor"],
+               "partition_s": t["partition"],
+               "cache_hit": result.bundle.labels_hit,
+               "n_pad": result.batch.n_pad, "e_pad": result.batch.e_pad,
+               "ms_per_epoch": 1e3 * t["train_epochs"] / cfg.epochs,
+               "classifier_s": t["classifier"],
+               "accuracy": result.accuracy,
+               "loss_first": float(result.losses[0].mean()),
+               "loss_last": float(result.losses[-1].mean()),
+               "launches": {k: launches[k] for k in (
+                   "fused_gcn_layer_need_agg", "csr_aggregate")}}
+        print(f"comparison [{method}]: {json.dumps(row)}", flush=True)
+        check(bool(np.isfinite(result.losses).all()),
+              f"{method}: non-finite training loss")
+        check(all(row["launches"].values()),
+              f"{method}: kernels A and B did not both launch: {launches}")
+        if method in CONNECTED_METHODS:
+            check(row["max_components"] == 1 and row["isolated"] == 0,
+                  f"{method}: a part is disconnected or has an isolated "
+                  f"node: {p}")
+        if method in ("random", "lpa"):
+            params = result.params["body"]["layers"][0]
+            kernel_rows[method] = {
+                "launches": row["launches"],
+                **per_partition_summary(kernels_per_partition(
+                    result.tensors, params["w"][0], params["b"][0], dev))}
+            print(f"comparison kernels [{method}]: "
+                  f"{json.dumps(kernel_rows[method])}")
+        rows[method] = row
+        del result
+    print("comparison table (arxiv-like 40,000 nodes, k=8, repli, GCN 3x128, "
+          "60 epochs):")
+    print(f"  {'method':14s} {'cut%':>6s} {'comps':>6s} {'isol':>6s} "
+          f"{'bal':>5s} {'repl':>5s} {'part_s':>7s} {'ms/ep':>7s} "
+          f"{'test':>6s}")
+    for method, r in rows.items():
+        print(f"  {method:14s} {r['cut_pct']:6.2f} {r['components']:6d} "
+              f"{r['isolated']:6d} {r['node_balance']:5.2f} "
+              f"{r['replication']:5.2f} {r['partition_s']:7.2f} "
+              f"{r['ms_per_epoch']:7.2f} {r['accuracy']['test']:6.4f}")
+    print(f"comparison phase: {time.perf_counter() - t0:.1f} s wall")
+    return rows, kernel_rows
+
+
+def proteins_on_card(dev):
+    """Phase 13: proteins-like at its default (6,000 nodes, 112 tasks,
+    average degree 80), k = 8, GCN and SAGE for 60 epochs: the test mean
+    ROC-AUC must beat 0.5 and the seeded, untrained run's."""
+    import numpy as np
+    import torch
+    from repro_torch.gnn.train import mean_rocauc
+    from repro_torch.kernels import ops
+    from repro_torch.pipeline.datasets import get_dataset
+    from repro_torch.pipeline.pipeline import (PipelineConfig, run_inference,
+                                               run_training)
+    from repro_torch.serving.store import classify
+    ds = get_dataset("proteins-like")
+    test = torch.as_tensor(ds.test_mask)
+    rows = {}
+    for model in ("gcn", "sage"):
+        cfg = PipelineConfig(dataset="proteins-like", k=8, model=model)
+        seeded = run_inference(cfg, device=dev, ds=ds)
+        seeded_auc = float(mean_rocauc(
+            ds.labels[ds.test_mask],
+            classify(seeded.classifier, seeded.embeddings)[test.to(dev)]
+            .cpu().numpy()))
+        del seeded
+        ops.reset_launch_counts()
+        trained = run_training(cfg, device=dev, ds=ds)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        t = trained.timings
+        row = {"auc": trained.accuracy, "seeded_test_auc": seeded_auc,
+               "ms_per_epoch": 1e3 * t["train_epochs"] / cfg.epochs,
+               "n_pad": trained.batch.n_pad, "e_pad": trained.batch.e_pad,
+               "loss_first": float(trained.losses[0].mean()),
+               "loss_last": float(trained.losses[-1].mean()),
+               "launches": {k: launches[k] for k in (
+                   "fused_gcn_layer_need_agg", "csr_aggregate")}}
+        print(f"proteins-like [{model}, k=8, 60 epochs]: {json.dumps(row)}")
+        auc = trained.accuracy["test"]
+        check(bool(np.isfinite(trained.losses).all()),
+              f"proteins {model}: non-finite training loss")
+        check(all(row["launches"].values()),
+              f"proteins {model}: kernels A and B did not both launch")
+        check(auc > 0.5 and auc > seeded_auc,
+              f"proteins {model}: test ROC-AUC {auc} does not beat 0.5 and "
+              f"the seeded run's {seeded_auc}")
+        rows[model] = row
+        del trained
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -994,7 +1202,7 @@ def main():
               f"and the seeded run ({seeded_acc})")
 
     # -- 6. training on the card against the CPU path -------------------
-    train_on_card_vs_cpu(dev)
+    parity = train_on_card_vs_cpu(dev)
 
     # -- 7. gradients at the main path's largest partition ---------------
     edge_launches, p = gradients_against_plain(trained.tensors,
@@ -1217,6 +1425,28 @@ def main():
         "lm_serve": {k: lm_report[k] for k in (
             "prefill_s", "decode_s", "decode_tok_per_s",
             "prefill_buckets")}})
+
+    # -- 12. the partitioner comparison on the card ------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-cache-",
+                                     dir=ROOT) as cache_dir:
+        comparison, comparison_kernels = partitioner_comparison(dev,
+                                                                cache_dir)
+    for k in kernels:
+        if k["name"] in ("fused_gcn_layer_need_agg",
+                         "csr_aggregate_transpose"):
+            k["comparison_partitions"] = comparison_kernels
+
+    # -- 13. proteins-like on the card ---------------------------------------
+    proteins = proteins_on_card(dev)
+    print("summary: " + json.dumps({
+        "phase6": {k: {f: v[f] for f in ("loss_ratio", "table_ratio",
+                                         "table_ratio_full")}
+                   for k, v in parity.items()},
+        "comparison_test_acc": {m: r["accuracy"]["test"]
+                                for m, r in comparison.items()},
+        "proteins_test_auc": {m: r["auc"]["test"]
+                              for m, r in proteins.items()}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

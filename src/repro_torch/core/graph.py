@@ -89,6 +89,9 @@ class Graph:
         """Total undirected edge weight (self-loops included)."""
         return float(self.edge_weight.sum() / 2.0 + self.self_weight.sum())
 
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
     def degrees(self) -> np.ndarray:
         """Weighted degree per node (a self-loop of weight w counts 2w)."""
         out = 2.0 * self.self_weight.copy() if self.self_weight.shape[0] \
@@ -159,7 +162,7 @@ def karate_club() -> Graph:
 class NodeDataset:
     graph: Graph
     features: np.ndarray       # (n, f) float32
-    labels: np.ndarray         # (n,) int64
+    labels: np.ndarray         # (n,) int64, or (n, tasks) float32 (multilabel)
     num_classes: int
     train_mask: np.ndarray
     val_mask: np.ndarray
@@ -243,3 +246,33 @@ def make_arxiv_like(n: int = 40_000, num_classes: int = 40,
     test_mask = np.zeros(n, bool); test_mask[perm[va:]] = True
     return NodeDataset(g, feats, labels, num_classes, train_mask, val_mask,
                        test_mask, multilabel=False, name="arxiv_like")
+
+
+def make_proteins_like(n: int = 6_000, num_tasks: int = 112,
+                       feature_dim: int = 8, avg_deg: float = 80.0,
+                       seed: int = 1, scale: float = 1.0) -> NodeDataset:
+    """A dense PPI stand-in: high average degree, multilabel binary tasks
+    (the paper's ogbn-proteins: 132k nodes, 39.5M edges, average degree
+    597, 112 tasks).
+
+    ``scale`` multiplies the node count, as in :func:`make_arxiv_like`.
+    """
+    n = max(int(n * scale), 1)
+    rng = np.random.default_rng(seed)
+    num_blocks = 24
+    block_of = rng.integers(0, num_blocks, n)
+    src, dst = _sbm_edges(rng, block_of, avg_deg_in=avg_deg * 0.7,
+                          avg_deg_out=avg_deg * 0.3)
+    g = _ensure_connected(Graph.from_edges(n, src, dst), rng)
+    proto = rng.random((num_blocks, num_tasks)) < 0.3
+    flip = rng.random((n, num_tasks)) < 0.15
+    labels = (proto[block_of] ^ flip).astype(np.float32)
+    feats = rng.normal(0, 1, (n, feature_dim)).astype(np.float32)
+    feats[:, 0] = np.log1p(g.degrees()).astype(np.float32)
+    perm = rng.permutation(n)
+    tr, va = int(0.6 * n), int(0.8 * n)
+    train_mask = np.zeros(n, bool); train_mask[perm[:tr]] = True
+    val_mask = np.zeros(n, bool); val_mask[perm[tr:va]] = True
+    test_mask = np.zeros(n, bool); test_mask[perm[va:]] = True
+    return NodeDataset(g, feats, labels, num_tasks, train_mask, val_mask,
+                       test_mask, multilabel=True, name="proteins_like")

@@ -1,17 +1,32 @@
-"""``python -m repro_torch.pipeline run``: the training pipeline.
+"""``python -m repro_torch.pipeline``: the training pipeline, the partition
+artifact cache, and the partitioner registry.
 
     PYTHONPATH=src python -m repro_torch.pipeline run              # GPU
     PYTHONPATH=src python -m repro_torch.pipeline run --device cpu \\
-        --dataset karate --k 4 --epochs 3 --classifier-epochs 5
+        --dataset karate --k 4 --epochs 3 --classifier-epochs 5 \\
+        --method "metis+f" --cache-dir /tmp/c
+    PYTHONPATH=src python -m repro_torch.pipeline cache --cache-dir /tmp/c
+    PYTHONPATH=src python -m repro_torch.pipeline cache --clear
+    PYTHONPATH=src python -m repro_torch.pipeline partitioners [--json]
 
-Partition, train k GNN replicas locally (no communication), pool their
-embeddings, train the classifier and print a report. The flags are the
-reference CLI's that local mode reads; ``--device`` defaults to ``cuda``.
+``run`` partitions, trains k GNN replicas locally (no communication), pools
+their embeddings, trains the classifier and prints a report. ``--method``
+takes any partitioner spec string (``metis``, ``"lpa(max_iter=30)+f"``,
+``"leiden_fusion(resolution=0.5)"``); ``partitioners`` lists the registry.
+With ``--cache-dir`` a run loads its partition and assembly from the
+artifact cache there, or computes and stores them; the entries are the
+reference package's, and either package hits the other's. Unlike the
+reference CLI, which caches under the home directory by default, the port
+caches only where it is told to (``--no-cache`` turns a given
+``--cache-dir`` off). The flags are the reference CLI's that local mode
+reads; ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import logging
 from typing import List, Optional
 
 
@@ -25,13 +40,17 @@ def build_parser() -> argparse.ArgumentParser:
     run = sub.add_parser("run", help="run the training pipeline once")
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     run.add_argument("--dataset", default="arxiv-like",
-                     help="karate | arxiv-like")
+                     help="karate | arxiv-like | proteins(-like)")
     run.add_argument("--nodes", type=int, default=None,
                      help="node count override for synthetic datasets")
     run.add_argument("--dataset-scale", type=float, default=None,
                      help="node-count multiplier for synthetic datasets "
                           "(169343/40000 on arxiv-like gives the "
                           "ogbn-arxiv node count)")
+    run.add_argument("--method", default="leiden_fusion",
+                     help="partitioner spec, e.g. leiden_fusion | metis | "
+                          "\"lpa+f(alpha=0.1)\"; see the 'partitioners' "
+                          "subcommand")
     run.add_argument("--k", type=int, default=8)
     run.add_argument("--seed", type=int, default=0)
     run.add_argument("--scheme", default="repli", choices=["inner", "repli"])
@@ -51,6 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--epochs", type=int, default=60)
     run.add_argument("--lr", type=float, default=5e-3)
     run.add_argument("--classifier-epochs", type=int, default=150)
+    run.add_argument("--cache-dir", default=None,
+                     help="partition artifact cache directory (default: "
+                          "no cache)")
+    run.add_argument("--no-cache", action="store_true",
+                     help="disable the partition artifact cache")
     run.add_argument("--serving-dir", default=None,
                      help="export a serving bundle here (requires "
                           "--classifier-epochs > 0)")
@@ -59,26 +83,105 @@ def build_parser() -> argparse.ArgumentParser:
                           "partition's tensors on the device at a time)")
     run.add_argument("--json", action="store_true",
                      help="print the report as JSON instead of the summary")
+
+    cache = sub.add_parser("cache", help="list or clear the artifact cache")
+    cache.add_argument("--cache-dir", required=True)
+    cache.add_argument("--list", action="store_true", default=True,
+                       help="list the entries (the default)")
+    cache.add_argument("--clear", action="store_true")
+
+    part = sub.add_parser("partitioners",
+                          help="list the registered partitioners with their "
+                               "config fields and capability flags")
+    part.add_argument("--json", action="store_true",
+                      help="machine-readable schema dump")
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _cmd_cache(args: argparse.Namespace) -> int:
+    from .artifacts import PartitionArtifactStore
+    store = PartitionArtifactStore(args.cache_dir)
+    if args.clear:
+        print(f"removed {store.clear()} artifact(s) from {store.cache_dir}")
+        return 0
+    entries = store.entries()
+    if not entries:
+        print(f"cache empty: {store.cache_dir}")
+        return 0
+    for name, size in entries:
+        print(f"{size:>12d}  {name}")
+    print(f"{sum(size for _, size in entries):>12d}  total "
+          f"({len(entries)} artifacts) in {store.cache_dir}")
+    return 0
+
+
+def _config_schema(config_type) -> dict:
+    out = {}
+    for f in dataclasses.fields(config_type):
+        default = f.default if f.default is not dataclasses.MISSING else None
+        out[f.name] = {"type": getattr(f.type, "__name__", str(f.type)),
+                       "default": default,
+                       "help": f.metadata.get("help", "")}
+    return out
+
+
+def _print_fields(config_type) -> None:
+    schema = _config_schema(config_type)
+    if not schema:
+        print(f"{'':16s}   (no config fields)")
+    for field, info in schema.items():
+        hint = f"  — {info['help']}" if info["help"] else ""
+        print(f"{'':16s}   {field}: {info['type']} = "
+              f"{info['default']!r}{hint}")
+
+
+def _cmd_partitioners(args: argparse.Namespace) -> int:
+    from repro_torch.core import FusionConfig, registered_partitioners
+    entries = registered_partitioners()
+    if args.json:
+        payload = {
+            name: {"capabilities": dataclasses.asdict(e.capabilities),
+                   "config": e.config_type.__name__,
+                   "fields": _config_schema(e.config_type), "doc": e.doc}
+            for name, e in entries.items()}
+        payload["+f"] = {
+            "doc": "fusion combinator over any base method (paper §5.4)",
+            "config": FusionConfig.__name__,
+            "fields": _config_schema(FusionConfig)}
+        print(json.dumps(payload, indent=2))
+        return 0
+    for name, e in entries.items():
+        print(f"{name:16s} [{e.capabilities.describe()}]  {e.doc}")
+        _print_fields(e.config_type)
+    print()
+    print("+f               fusion combinator: any spec may end in "
+          "\"+f(...)\" (paper §5.4)")
+    _print_fields(FusionConfig)
+    print()
+    print("spec grammar: method | method(field=value,...) | base+f | "
+          "base(...)+f(field=value,...)")
+    return 0
+
+
+def _cmd_run(args: argparse.Namespace) -> int:
     from .pipeline import PipelineConfig, PipelineReport, run_training
 
-    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
     dataset_kwargs = {}
     if args.nodes is not None:
         dataset_kwargs["n"] = args.nodes
     if args.dataset_scale is not None:
         dataset_kwargs["scale"] = args.dataset_scale
     cfg = PipelineConfig(
-        dataset=args.dataset, k=args.k, seed=args.seed, scheme=args.scheme,
+        dataset=args.dataset, method=args.method, k=args.k, seed=args.seed, scheme=args.scheme,
         mode=args.mode, integrate=args.integrate, model=args.model,
         hidden_dim=args.hidden_dim, embed_dim=args.embed_dim,
         num_layers=args.num_layers, dropout=args.dropout,
         epochs=args.epochs, lr=args.lr,
         classifier_epochs=args.classifier_epochs,
         low_memory=args.low_memory, serving_dir=args.serving_dir,
+        cache_dir=None if args.no_cache else args.cache_dir,
         dataset_kwargs=dataset_kwargs)
     report = PipelineReport.of(cfg, run_training(cfg, device=args.device))
     if args.json:
@@ -86,3 +189,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         print(report.summary())
     return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.cmd == "run":
+        return _cmd_run(args)
+    if args.cmd == "partitioners":
+        return _cmd_partitioners(args)
+    return _cmd_cache(args)

@@ -11,7 +11,8 @@ from typing import Callable, Dict
 
 import numpy as np
 
-from repro_torch.core import Graph, NodeDataset, karate_club, make_arxiv_like
+from repro_torch.core import (Graph, NodeDataset, karate_club,
+                              make_arxiv_like, make_proteins_like)
 
 __all__ = ["DATASETS", "get_dataset", "make_karate_dataset",
            "graph_fingerprint"]
@@ -40,7 +41,10 @@ def make_karate_dataset(seed: int = 0) -> NodeDataset:
 DATASETS: Dict[str, Callable[..., NodeDataset]] = {
     "karate": make_karate_dataset,
     "arxiv_like": make_arxiv_like,
+    "proteins_like": make_proteins_like,
+    # short aliases
     "arxiv": make_arxiv_like,
+    "proteins": make_proteins_like,
 }
 
 

@@ -1,7 +1,8 @@
 """The pipeline: the training run and the inference run.
 
-    dataset -> Leiden-Fusion partition -> per-partition assembly
-    -> to device (one CSR per partition)
+    dataset -> partition (any registered method, by spec string; through
+    the artifact cache when ``cache_dir`` is set) -> partition metrics
+    -> per-partition assembly -> to device (one CSR per partition)
     -> train: k GNN replicas trained locally   | embed: seeded or given
        (no communication), pooled embeddings   |   parameters, pooled
     -> classifier trained on the pooled table  |   embeddings
@@ -21,9 +22,9 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import (INTEGRATION_KINDS, LeidenFusionConfig,
-                              NodeDataset, PartitionBatch,
-                              build_partition_batch, partition)
+from repro_torch.core import (INTEGRATION_KINDS, NodeDataset,
+                              PartitionBatch, PartitionerSpec,
+                              evaluate_partition)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.gnn.infer import (PartitionTensors, compute_embeddings,
                                    gather_partition_tensors,
@@ -31,6 +32,8 @@ from repro_torch.gnn.infer import (PartitionTensors, compute_embeddings,
 from repro_torch.gnn.model import GNNConfig, init_mlp
 from repro_torch.gnn.train import train_classifier, train_local
 
+from .artifacts import (ArtifactBundle, PartitionArtifactStore,
+                        compute_bundle)
 from .datasets import get_dataset
 
 __all__ = ["PipelineConfig", "PipelineResult", "PipelineReport",
@@ -41,6 +44,8 @@ __all__ = ["PipelineConfig", "PipelineResult", "PipelineReport",
 class PipelineConfig:
     """One run. Defaults are the reference pipeline's."""
     dataset: str = "arxiv-like"
+    method: str = "leiden_fusion"   # partitioner spec, e.g. "metis",
+                                    # "lpa+f(alpha=0.1)"
     k: int = 8
     seed: int = 0
     scheme: str = "repli"           # "inner" | "repli"
@@ -56,7 +61,7 @@ class PipelineConfig:
     classifier_epochs: int = 150    # <= 0 skips the classifier stage
     classifier_hidden: int = 256
     low_memory: bool = False        # train one partition at a time
-    partitioner: LeidenFusionConfig = LeidenFusionConfig()
+    cache_dir: Optional[str] = None     # None disables the artifact cache
     serving_dir: Optional[str] = None   # export a serving bundle here
     dataset_kwargs: Mapping[str, Any] = dataclasses.field(
         default_factory=dict)
@@ -68,6 +73,9 @@ class PipelineResult:
     dataset: NodeDataset
     labels: np.ndarray              # [n] partition of every node
     batch: PartitionBatch
+    spec: PartitionerSpec
+    bundle: ArtifactBundle          # cache hits, paths, partition seconds
+    partition: Dict[str, Any]       # PartitionReport.as_dict()
     tensors: Optional[PartitionTensors]   # None for a low-memory run
     gnn: GNNConfig
     params: Dict[str, Any]          # stacked k replicas (body + head)
@@ -88,6 +96,10 @@ class PipelineReport:
     num_nodes: int
     num_edges: int
     device: str
+    partition: Dict[str, Any]       # PartitionReport.as_dict()
+    partition_cache_hit: bool
+    batch_cache_hit: bool
+    artifact_paths: Dict[str, Optional[str]]
     shapes: Dict[str, int]          # k, n_pad, e_pad
     accuracy: Dict[str, float]      # train/val/test (empty if skipped)
     timings: Dict[str, float]
@@ -97,34 +109,47 @@ class PipelineReport:
     @classmethod
     def of(cls, cfg: PipelineConfig, result: PipelineResult
            ) -> "PipelineReport":
-        ds, batch = result.dataset, result.batch
+        ds, batch, bundle = result.dataset, result.batch, result.bundle
         return cls(
             config={**dataclasses.asdict(cfg),
-                    "partitioner": cfg.partitioner.canonical(),
+                    "method": result.spec.canonical(),
                     "dataset_kwargs": dict(cfg.dataset_kwargs)},
             dataset=ds.name,
             num_nodes=int(ds.graph.n), num_edges=int(ds.graph.num_arcs // 2),
             device=str(result.embeddings.device),
+            partition=dict(result.partition),
+            partition_cache_hit=bundle.labels_hit,
+            batch_cache_hit=bundle.batch_hit,
+            artifact_paths={"labels": bundle.labels_path,
+                            "batch": bundle.batch_path},
             shapes={"k": batch.k, "n_pad": batch.n_pad,
                     "e_pad": batch.e_pad},
             accuracy=dict(result.accuracy),
             timings={k: round(v, 4) for k, v in result.timings.items()},
-            partition_fingerprint=cfg.partitioner.fingerprint(),
+            partition_fingerprint=result.spec.fingerprint(),
             serving_path=result.serving_path)
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
     def summary(self) -> str:
-        c = self.config
+        c, p = self.config, self.partition
+        hit = "HIT" if self.partition_cache_hit else "miss"
+        bhit = "HIT" if self.batch_cache_hit else "miss"
         lines = ["PipelineReport",
                  f"  dataset      {self.dataset} (n={self.num_nodes}, "
                  f"edges={self.num_edges})",
-                 f"  partition    {c['partitioner']} k={c['k']} "
-                 f"seed={c['seed']} fp={self.partition_fingerprint}",
+                 f"  partition    {c['method']} k={c['k']} "
+                 f"seed={c['seed']} fp={self.partition_fingerprint} "
+                 f"[cache {hit}]",
+                 f"               cut={p['edge_cut_pct']:.1f}% "
+                 f"components={p['total_components']} "
+                 f"isolated={p['total_isolated']} "
+                 f"balance={p['node_balance']:.2f} "
+                 f"replication={p['replication_factor']:.2f}",
                  f"  assembly     scheme={c['scheme']} "
                  f"n_pad={self.shapes['n_pad']} "
-                 f"e_pad={self.shapes['e_pad']}",
+                 f"e_pad={self.shapes['e_pad']} [cache {bhit}]",
                  f"  training     mode={c['mode']} model={c['model']} "
                  f"layers={c['num_layers']} epochs={c['epochs']} "
                  f"device={self.device}"]
@@ -158,7 +183,9 @@ class _Stages:
         return out
 
 
-def _check(cfg: PipelineConfig) -> None:
+def _check(cfg: PipelineConfig) -> PartitionerSpec:
+    """Validate the config; returns the resolved partitioner spec (a bad
+    spec string fails here, before any dataset or partition work)."""
     if cfg.k < 1:
         raise ValueError(f"k must be >= 1, got {cfg.k}")
     if cfg.mode in ("sync", "stale"):
@@ -170,21 +197,29 @@ def _check(cfg: PipelineConfig) -> None:
     if cfg.integrate not in INTEGRATION_KINDS:
         raise ValueError(f"integrate must be one of {INTEGRATION_KINDS}, "
                          f"got {cfg.integrate!r}")
+    return PartitionerSpec.parse(cfg.method)
 
 
-def _partitioned(cfg: PipelineConfig, stage: _Stages,
-                 ds: Optional[NodeDataset]):
+def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
+                 stage: _Stages, ds: Optional[NodeDataset]):
+    """Dataset, partition and assembly (load-or-compute), and the partition
+    report. Returns (ds, bundle, report, gnn config)."""
     if ds is None:
         ds = stage("dataset", lambda: get_dataset(cfg.dataset,
                                                   **dict(cfg.dataset_kwargs)))
-    labels = stage("partition", lambda: partition(
-        ds.graph, cfg.k, seed=cfg.seed, cfg=cfg.partitioner))
-    batch = stage("assemble", lambda: build_partition_batch(
-        ds.graph, labels, scheme=cfg.scheme))
+    if cfg.cache_dir:
+        bundle = PartitionArtifactStore(cfg.cache_dir).load_or_compute(
+            ds.graph, spec, cfg.k, cfg.seed, cfg.scheme)
+    else:
+        bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, cfg.scheme)
+    stage.timings["partition"] = bundle.partition_seconds
+    stage.timings["assemble"] = bundle.assemble_seconds
+    report = stage("partition_eval", lambda: evaluate_partition(
+        ds.graph, bundle.labels).as_dict())
     gnn = GNNConfig(kind=cfg.model, feature_dim=int(ds.features.shape[1]),
                     hidden_dim=cfg.hidden_dim, embed_dim=cfg.embed_dim,
                     num_layers=cfg.num_layers, dropout=cfg.dropout)
-    return ds, labels, batch, gnn
+    return ds, bundle, report, gnn
 
 
 def _finish(cfg: PipelineConfig, stage: _Stages,
@@ -195,7 +230,7 @@ def _finish(cfg: PipelineConfig, stage: _Stages,
         .astype(np.int32))
     if cfg.serving_dir:
         result.serving_path = stage("export", lambda: export_from_pipeline(
-            cfg.serving_dir, result, cfg.partitioner))
+            cfg.serving_dir, result, result.spec))
     result.timings = stage.timings
     return result
 
@@ -211,13 +246,14 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
     ``params``/``classifier`` are the initial parameters; they default to
     the seeded ones :func:`run_inference` uses. The offline answer key is
     the trained classifier's blocked ``classify`` of the pooled table."""
-    _check(cfg)
+    spec = _check(cfg)
     if cfg.serving_dir and cfg.classifier_epochs <= 0:
         raise ValueError("serving_dir requires the classifier stage "
                          "(classifier_epochs > 0)")
     device = resolve_device(device)
     stage = _Stages(device)
-    ds, labels, batch, gnn = _partitioned(cfg, stage, ds)
+    ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
+    batch = bundle.batch
     tensors = None
     if not cfg.low_memory:
         tensors = stage("to_device",
@@ -241,7 +277,8 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
             ds, trained.embeddings, hidden=cfg.classifier_hidden,
             epochs=cfg.classifier_epochs, seed=cfg.seed, params=classifier))
     result = PipelineResult(
-        dataset=ds, labels=labels, batch=batch, tensors=tensors, gnn=gnn,
+        dataset=ds, labels=bundle.labels, batch=batch, spec=spec,
+        bundle=bundle, partition=report, tensors=tensors, gnn=gnn,
         params=trained.params, classifier=classifier,
         embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
         timings={}, accuracy=accuracy, losses=trained.losses)
@@ -255,10 +292,11 @@ def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
                   ) -> PipelineResult:
     """Run the pipeline without training; ``params``/``classifier``
     default to seeded ones."""
-    _check(cfg)
+    spec = _check(cfg)
     device = resolve_device(device)
     stage = _Stages(device)
-    ds, labels, batch, gnn = _partitioned(cfg, stage, ds)
+    ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
+    batch = bundle.batch
     tensors = stage("to_device",
                     lambda: gather_partition_tensors(ds, batch, device))
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -272,7 +310,8 @@ def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
     pooled = stage("pool", lambda: pool_embeddings(emb, tensors, ds.graph.n))
     del emb
     result = PipelineResult(
-        dataset=ds, labels=labels, batch=batch, tensors=tensors, gnn=gnn,
+        dataset=ds, labels=bundle.labels, batch=batch, spec=spec,
+        bundle=bundle, partition=report, tensors=tensors, gnn=gnn,
         params=params, classifier=classifier, embeddings=pooled,
         predictions=np.zeros(0, np.int32), timings={})
     return _finish(cfg, stage, result)

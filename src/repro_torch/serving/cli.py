@@ -69,7 +69,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     result = run_inference(cfg, device=args.device)
     store = EmbeddingStore.load(
         result.serving_path, device=args.device,
-        expect_fingerprint=cfg.partitioner.fingerprint())
+        expect_fingerprint=result.spec.fingerprint())
     batcher = ContinuousBatcher(
         store, cache=LruNodeCache(args.cache_capacity),
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

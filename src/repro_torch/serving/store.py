@@ -95,9 +95,11 @@ def export_serving_bundle(directory: str, *, part_labels: np.ndarray,
     return path
 
 
-def export_from_pipeline(directory: str, result, partitioner) -> str:
-    """Write the bundle of one :func:`repro_torch.pipeline.run_inference`
-    result (its predictions are the offline answer key)."""
+def export_from_pipeline(directory: str, result, spec) -> str:
+    """Write the bundle of one pipeline result (its predictions are the
+    offline answer key). ``spec`` is the run's
+    :class:`~repro_torch.core.PartitionerSpec`: the bundle carries its
+    fingerprint and canonical string, as the reference package's does."""
     from repro_torch.pipeline.datasets import graph_fingerprint
 
     ds = result.dataset
@@ -105,8 +107,8 @@ def export_from_pipeline(directory: str, result, partitioner) -> str:
     def host(t):
         return t.detach().cpu().numpy()
     meta = {
-        "partition_fingerprint": partitioner.fingerprint(),
-        "spec": partitioner.canonical(),
+        "partition_fingerprint": spec.fingerprint(),
+        "spec": spec.canonical(),
         "graph": graph_fingerprint(ds.graph),
         "dataset": ds.name,
         "n": int(ds.graph.n),

@@ -19,7 +19,7 @@ from repro.gnn import layers as ref_layers                     # noqa: E402
 from repro.gnn import model as ref_model                       # noqa: E402
 from repro.gnn import train as ref_train                       # noqa: E402
 from repro_torch.core import (build_partition_batch,           # noqa: E402
-                              make_arxiv_like, partition)
+                              make_arxiv_like, partition_from_spec)
 from repro_torch.gnn import layers, model                      # noqa: E402
 from repro_torch.gnn.infer import (compute_embeddings,         # noqa: E402
                                    gather_partition_tensors, params_from_jax,
@@ -103,7 +103,7 @@ def test_head_and_classifier_match_reference():
 def graphs():
     mine, ref = make_arxiv_like(n=600, feature_dim=32), \
         ref_arxiv(n=600, feature_dim=32)
-    labels = partition(mine.graph, 2, seed=0)
+    labels = partition_from_spec(mine.graph, "leiden_fusion", 2).labels
     return (mine, build_partition_batch(mine.graph, labels, "repli"),
             ref, ref_batch(ref.graph, labels, "repli"))
 

@@ -70,6 +70,10 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.models.convert", "repro_torch.configs.qwen3_4b",
             "repro_torch.kernels.flash_decode",
             "repro_torch.launch.serve"} <= set(got["mods"])
+    assert {"repro_torch.core.registry", "repro_torch.core.partitioners",
+            "repro_torch.core.spec", "repro_torch.core.metrics",
+            "repro_torch.pipeline.artifacts",
+            "repro_torch.tools.training_parity"} <= set(got["mods"])
 
 
 @pytest.fixture

@@ -15,8 +15,10 @@ from repro.core import partition_from_spec                      # noqa: E402
 from repro.pipeline.datasets import graph_fingerprint as ref_fp  # noqa: E402
 from repro.pipeline.datasets import make_karate_dataset as ref_karate  # noqa
 from repro_torch.core import (LeidenFusionConfig,               # noqa: E402
-                              build_partition_batch, make_arxiv_like,
-                              partition)
+                              build_partition_batch, make_arxiv_like)
+from repro_torch.core import PartitionerSpec as MySpec          # noqa: E402
+from repro_torch.core import \
+    partition_from_spec as my_partition_from_spec               # noqa: E402
 from repro_torch.pipeline.datasets import (graph_fingerprint,   # noqa: E402
                                            make_karate_dataset)
 
@@ -50,7 +52,8 @@ def test_datasets_are_byte_identical(datasets, name):
 @pytest.mark.parametrize("k", [2, 4])
 def test_leiden_fusion_labels_equal(datasets, name, k):
     mine, ref = datasets[name]
-    labels = partition(mine.graph, k, seed=0)
+    labels = my_partition_from_spec(mine.graph, "leiden_fusion", k,
+                                    seed=0).labels
     expect = partition_from_spec(ref.graph, "leiden_fusion", k, seed=0)
     assert np.array_equal(labels, expect.labels)
     assert labels.max() + 1 == k
@@ -59,7 +62,8 @@ def test_leiden_fusion_labels_equal(datasets, name, k):
 @pytest.mark.parametrize("overrides", [{}, {"alpha": 0.1, "beta": 0.3},
                                        {"resolution": 0.5}])
 def test_partitioner_fingerprint_matches_spec(overrides):
-    cfg = LeidenFusionConfig(**overrides)
+    cfg = MySpec(method="leiden_fusion",
+                 config=LeidenFusionConfig(**overrides))
     spec = PartitionerSpec.parse("leiden_fusion")
     spec = dataclasses.replace(
         spec, config=dataclasses.replace(spec.config, **overrides))
@@ -70,7 +74,7 @@ def test_partitioner_fingerprint_matches_spec(overrides):
 @pytest.mark.parametrize("scheme", ["inner", "repli"])
 def test_partition_batches_equal(datasets, scheme):
     mine, ref = datasets["arxiv2000"]
-    labels = partition(mine.graph, 4, seed=0)
+    labels = my_partition_from_spec(mine.graph, "leiden_fusion", 4).labels
     a = build_partition_batch(mine.graph, labels, scheme=scheme)
     b = ref_batch(ref.graph, labels, scheme=scheme)
     assert (a.n_pad, a.e_pad) == (b.n_pad, b.e_pad)

@@ -112,7 +112,7 @@ def test_bundles_load_across_packages(served):
     # the reference's bundle in the port's store
     mine = EmbeddingStore.load(
         served["ref_path"], device="cpu",
-        expect_fingerprint=served["cfg"].partitioner.fingerprint(),
+        expect_fingerprint=result.spec.fingerprint(),
         expect_graph=graph_fingerprint(served["ds"].graph))
     np.testing.assert_array_equal(mine.lookup(ids).numpy(),
                                   served["ref_table"])

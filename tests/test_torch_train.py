@@ -33,7 +33,7 @@ from repro.optim import adamw as ref_adamw                     # noqa: E402
 from repro.pipeline import datasets as ref_datasets            # noqa: E402
 from repro_torch.core import (average_partition_params,        # noqa: E402
                               build_partition_batch, integrate_models,
-                              partition)
+                              partition_from_spec)
 from repro_torch.gnn import model                              # noqa: E402
 from repro_torch.gnn.infer import (compute_embeddings,         # noqa: E402
                                    gather_partition_tensors, params_from_jax)
@@ -222,7 +222,7 @@ def _reference_training(name, kind, lr=1e-2):
     kwargs, epochs = GRAPHS[name]
     ref_ds = ref_datasets.get_dataset(name, **kwargs)
     ds = get_dataset(name, **kwargs)
-    labels = partition(ds.graph, 4, seed=0)
+    labels = partition_from_spec(ds.graph, "leiden_fusion", 4).labels
     rbatch = ref_batch(ref_ds.graph, labels, scheme="repli")
     cfg_kw = dict(kind=kind, feature_dim=int(ds.features.shape[1]),
                   dropout=0.0, **DIMS)
@@ -268,8 +268,8 @@ def test_vmapped_and_sequential_training_agree(kind):
     """With dropout on: per-partition generators make both loop orders draw
     the same masks."""
     ds = get_dataset("arxiv-like", n=400, feature_dim=32)
-    batch = build_partition_batch(ds.graph, partition(ds.graph, 3, seed=0),
-                                  "repli")
+    labels = partition_from_spec(ds.graph, "leiden_fusion", 3).labels
+    batch = build_partition_batch(ds.graph, labels, "repli")
     cfg = model.GNNConfig(kind=kind, feature_dim=32, dropout=0.3, **DIMS)
     runs = [train_local(ds, batch, cfg, epochs=6, lr=1e-2, seed=3,
                         device="cpu", sequential=seq) for seq in (False,
@@ -302,7 +302,7 @@ def test_average_partition_params_matches_reference(weights):
 def test_apply_integration_matches_reference(kind):
     ds = get_dataset("arxiv-like", n=300, feature_dim=32)
     ref_ds = ref_datasets.get_dataset("arxiv-like", n=300, feature_dim=32)
-    labels = partition(ds.graph, 3, seed=0)
+    labels = partition_from_spec(ds.graph, "leiden_fusion", 3).labels
     ref_cfg = ref_model.GNNConfig(kind="gcn", feature_dim=32, **DIMS)
     params = _np(ref_train.init_partition_models(
         jax.random.PRNGKey(2), ref_cfg, ds.num_classes, 3))
