@@ -9,7 +9,9 @@ Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print the build time and register use;
+   source, in parallel) and print the build time and register use, and
+   the tensor-core (HMMA) instructions in kernel D's SASS (``cuobjdump``;
+   there must be some);
 3. serving main path at ogbn-arxiv scale (169,343 nodes, 128 features, 40
    classes): Leiden-Fusion with k = 8 (repli), a 3-layer 128-wide GCN and a
    256-wide classifier with seeded weights, pooled table, bundle export and
@@ -55,7 +57,10 @@ Phases, each fatal on failure:
    padding arcs (6 to a third of the arcs) sit in one row: error, two
    calls bitwise equal, time, bound, and for A ``torch.sparse.mm``; their
    ``kernels`` rows give the partition with the most padding arcs and the
-   launch-weighted mean beside the light partition. Then a profile of two
+   launch-weighted mean beside the light partition. Kernel C runs on the
+   largest partition and on the one with the most padding arcs: error,
+   two calls bitwise equal, device time per call (``torch.profiler``) and
+   one device launch a call, beside its CUDA-event time. Then a profile of two
    training epochs (device time by kernel and by launch, device busy
    share, and each kernel's device launches per wrapper call, counted
    there) and of one AdamW step (its launches);
@@ -65,14 +70,20 @@ Phases, each fatal on failure:
    be finite and kernel D must have launched 36 x 32 x (buckets) times.
    Then one decode step of a seeded prefill of the largest bucket, once
    through kernel D and once through its plain version, and a profile of
-   4 decode steps (device ms: kernel D, cuBLAS, the rest; idle share);
+   4 decode steps (device ms: kernel D, cuBLAS, the rest; idle share; one
+   kernel D device launch per wrapper call);
 10. long-cache decode: the same model, 4 sequences in a 32,768-slot cache
    of seeded noise at lengths 0, 4,095, 20,000 and 32,760, 8 decode steps
    (the last writes slot 32,767 and attends to the full cache); the first
    step's logits, kernel against plain;
-11. kernel D against its plain version, timed, at the decode_32k layer
-   shape (B 128, S 32,768, H 32, Hkv 8, D 128) in bf16 and (B 16) in f32,
-   and at long_500k's sliding ring (B 1, S 8,192);
+11. kernel D against its plain version, timed, at the serving run's
+   largest bucket (its 1-3 rows at their first decode step, cache 1,056:
+   where phase 9's launches are), at the decode_32k layer shape (B 128, S
+   32,768, H 32, Hkv 8, D 128) in bf16 and (B 16) in f32, and at
+   long_500k's sliding ring (B 1, S 8,192). Each case also gives the
+   device time per call (``torch.profiler``) beside the CUDA-event time,
+   and must show one device launch per call, two calls bitwise equal and
+   one allocation per call (its output);
 12. the paper's partitioner comparison: arxiv-like at 40,000 nodes (128
    features, 40 classes), k = 8, repli, for random, lpa, metis, lpa+f,
    metis+f and leiden_fusion in turn: the partition on the host through
@@ -161,6 +172,43 @@ def time_ms(fn, iters=30, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(fn, name, calls=20):
+    """(device us per launch, device launches per call) of the kernels
+    whose name holds ``name``, over ``calls`` calls under
+    ``torch.profiler`` (``repro_torch.tools.kernel_turns.device_us``):
+    the kernel's own time, without the wrapper's host work that CUDA
+    events around a call also hold. A window on the card has lost records
+    (its first, sometimes more), so the launches a call are a lower
+    bound: this fails on none, or on more records than calls (more than
+    one launch a call). Phase 9's decode profile counts kernel D's
+    launches exactly."""
+    from repro_torch.tools.kernel_turns import device_us as profiled
+    us, per_call = profiled(fn, (name,), calls)
+    check(0 < per_call <= 1, f"{per_call} {name} launches a call over "
+                             f"{calls} calls (one expected)")
+    return us, per_call
+
+
+def repeatable(fn, what):
+    """Fails unless two calls give bitwise-equal outputs."""
+    import torch
+    first, second = fn(), fn()
+    check(torch.equal(first, second), f"{what}: two calls differ")
+    return True
+
+
+def tensor_core_instructions(lib):
+    """HMMA instructions in a library's SASS by the toolkit's
+    ``cuobjdump``; None where it is not found."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
 
 
 def bound_ms(nbytes, ops):
@@ -422,6 +470,48 @@ def gradients_against_plain(tens, params, dev):
           f"the arc-weight backward did not launch kernels A and C: "
           f"{launches}")
     return launches["edge_dot"], p
+
+
+def edge_dot_case(h, g, csr, inv, what):
+    """Kernel C on one partition: error against its plain version (3e-5
+    against the sum of absolute terms), two calls bitwise equal, device
+    time by the profiler, CUDA-event time, plain time, bound and
+    ``torch.sparse.sampled_addmm``'s time."""
+    import torch
+    from repro_torch.kernels import edge_dot as kernel_c
+    nn, f = h.shape
+    e = csr.src.shape[0]
+    e_live = int((csr.weight > 0).sum())
+
+    def call():
+        return kernel_c.launch(h, g, csr.src, csr.dst, inv)
+    err = max_err(call(), kernel_c.plain(h, g, csr.src, csr.dst, inv),
+                  kernel_c.plain(h.abs(), g.abs(), csr.src, csr.dst, inv),
+                  f"edge dot ({what})")
+    sp_c = library_csr(csr.dst, csr.src, csr.weight, nn)
+    g_scaled = g * inv[:, None]
+    h_t = h.t()
+    lib = torch.sparse.sampled_addmm(sp_c, g_scaled, h_t, beta=0.0)
+    lib_dst = torch.repeat_interleave(
+        torch.arange(nn, device=h.device), sp_c.crow_indices().diff())
+    check(torch.allclose(lib.values(), kernel_c.plain(
+        h, g, sp_c.col_indices(), lib_dst, inv), rtol=1e-3, atol=1e-3),
+          "sampled_addmm does not compute the edge dot")
+    bound, by = bound_ms(4 * (2 * nn * f + 3 * e + nn), 2 * e * f)
+    us, per_call = device_us(call, "edge_dot_kernel")
+    row = {"max_abs_err": err,
+           "bitwise_repeatable": repeatable(call, f"kernel C ({what})"),
+           "device_ms": us / 1e3, "profiled_launches_per_call": per_call,
+           "ms": time_ms(call),
+           "plain_ms": time_ms(lambda: kernel_c.plain(h, g, csr.src,
+                                                      csr.dst, inv)),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+               sp_c, g_scaled, h_t, beta=0.0)),
+           "shape": {"N": nn, "F": f, "E": e, "E_live": e_live,
+                     "pad_arcs": e - e_live}}
+    print(f"kernel C {what}: {json.dumps(row)}")
+    return row
 
 
 def kernels_per_partition(tens, w0, b0, dev):
@@ -696,12 +786,13 @@ def profile_decode(params, cfg, cache, tokens, lengths, steps=4):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     split = {"flash_decode (D)": 0.0, "cublas gemm": 0.0, "other": 0.0}
-    n = 0
+    n = n_d = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n += 1
         name = e.name.lower()
+        n_d += "flash_decode" in name
         key = ("flash_decode (D)" if "flash_decode" in name else
                "cublas gemm" if any(w in name for w in
                                     ("gemm", "cutlass", "xmma", "gemv",
@@ -712,12 +803,17 @@ def profile_decode(params, cfg, cache, tokens, lengths, steps=4):
            "device_busy_ms_per_step": busy / steps / 1e3,
            "idle_share": 1 - busy / wall_us,
            "kernels_per_step": n / steps,
+           "kernel_d_device_launches_per_call": n_d / (steps
+                                                       * cfg.num_layers),
            "device_ms_per_step": {k: v / steps / 1e3
                                   for k, v in split.items()}}
     print(f"LM decode profile ({steps} steps, B={tokens.shape[0]}, profiler "
           f"on): {json.dumps(row)}")
     check(busy > 0 and split["flash_decode (D)"] > 0,
           "the profiler saw no kernel D launches in the decode steps")
+    check(n_d == steps * cfg.num_layers,
+          f"{n_d} kernel D device launches in {steps} steps of "
+          f"{cfg.num_layers} layers: not one a call")
     return row
 
 
@@ -782,7 +878,8 @@ def lm_serving(dev):
         if c is cfg:
             prof = profile_decode(p, c, cache, nxt, cur)
         del p, cache
-    return params, cfg, report, launches, errs, prof
+    serving = (s_b + args.max_new, [int(x) + 1 for x in rows])
+    return params, cfg, report, launches, errs, prof, serving
 
 
 def lm_long_cache(params, cfg, dev, steps=8):
@@ -873,11 +970,25 @@ def kernel_d_case(q, k, v, filled, plain_rows, what):
     lib_err = float((library()[:, :, 0].float() - ref.float()).abs().max())
     check(lib_err < 5e-2, f"scaled_dot_product_attention does not compute "
                           f"kernel D's function ({lib_err})")
+
+    def call():
+        return kernel_d.launch(q, k, v, filled)
+    us, per_call = device_us(call, "flash_decode")
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    call()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    check(allocs == 1, f"kernel D {what}: a call made {allocs} allocations, "
+                       f"not 1 (its output)")
     row = {"shape": {"B": b, "S": s, "H": q.shape[1], "Hkv": hkv, "D": d,
                      "dtype": str(k.dtype).split(".")[-1],
                      "filled_sum": rows, "plain_rows_per_call": plain_rows},
+           "plan": dict(zip(("splits", "chunk"), kernel_d.plan_of(q, k))),
            "max_abs_err": err,
-           "ms": time_ms(lambda: kernel_d.launch(q, k, v, filled)),
+           "bitwise_repeatable": repeatable(call, f"kernel D {what}"),
+           "allocations_per_call": allocs,
+           "device_ms": us / 1e3, "profiled_launches_per_call": per_call,
+           "ms": time_ms(call),
            "plain_ms": time_ms(plain_all, iters=10),
            "bound_ms": bound, "bound_by": by,
            "library_ms": time_ms(library, iters=10),
@@ -887,9 +998,10 @@ def kernel_d_case(q, k, v, filled, plain_rows, what):
     return row
 
 
-def kernel_d_against_plain(dev):
-    """Phase 11: kernel D at decode_32k's layer shape (bf16, and f32 at
-    B 16) and at long_500k's sliding ring."""
+def kernel_d_against_plain(dev, serving):
+    """Phase 11: kernel D at the serving run's largest bucket (``serving``:
+    its cache length and its rows' first-step lengths), at decode_32k's
+    layer shape (bf16, and f32 at B 16) and at long_500k's sliding ring."""
     import numpy as np
     import torch
     rng = np.random.default_rng(3)
@@ -907,6 +1019,11 @@ def kernel_d_against_plain(dev):
     filled[:5] = (1, 511, 512, 513, s)
     f = torch.as_tensor(filled, dtype=torch.int32, device=dev)
     rows = {}
+    s_serve, lengths = serving
+    q, k, v = qkv(len(lengths), s_serve, torch.bfloat16)
+    rows["serving"] = kernel_d_case(
+        q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+        len(lengths), f"serving bucket (B {len(lengths)}, S {s_serve})")
     q, k, v = qkv(128, s, torch.bfloat16)
     rows["decode_32k"] = kernel_d_case(q, k, v, f, 32, "decode_32k bf16")
     del q, k, v
@@ -1077,7 +1194,6 @@ def main():
         return 2
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import csr_aggregate as kernel_a
-    from repro_torch.kernels import edge_dot as kernel_c
     from repro_torch.kernels import fused_layer as kernel_b
     from repro_torch.kernels import ref as plain
     from repro_torch.pipeline.pipeline import (PipelineConfig, run_inference,
@@ -1108,6 +1224,11 @@ def main():
                 print(f"  {name}: {line.strip()}")
     check(all(_build.library_path(n).exists() for n in _build.SOURCES),
           "a kernel library is missing after the build")
+    hmma = tensor_core_instructions(_build.library_path("flash_decode"))
+    print(f"  flash_decode: {hmma} HMMA (tensor-core) instructions in its "
+          f"SASS (cuobjdump)")
+    check(hmma is None or hmma > 0,
+          "kernel D's library has no tensor-core instruction")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-", dir=ROOT) as tmp:
         # -- 3. the serving main path, seeded weights ---------------------
@@ -1314,36 +1435,24 @@ def main():
         "shape": {**shape, "rev_row_max": int(
             (csr.rev_row_ptr[1:] - csr.rev_row_ptr[:-1]).max())}})
 
-    # kernel C: the arc-weight gradient
-    out = kernel_c.launch(h, g, csr.src, csr.dst, inv)
-    err = max_err(out, kernel_c.plain(h, g, csr.src, csr.dst, inv),
-                  kernel_c.plain(h.abs(), g.abs(), csr.src, csr.dst, inv),
-                  "edge dot")
-    sp_c = library_csr(csr.dst, csr.src, csr.weight, nn)
-    g_scaled = g * inv[:, None]
-    h_t = h.t()
-    lib = torch.sparse.sampled_addmm(sp_c, g_scaled, h_t, beta=0.0)
-    lib_dst = torch.repeat_interleave(
-        torch.arange(nn, device=dev), sp_c.crow_indices().diff())
-    check(torch.allclose(lib.values(), kernel_c.plain(
-        h, g, sp_c.col_indices(), lib_dst, inv), rtol=1e-3, atol=1e-3),
-          "sampled_addmm does not compute the edge dot")
-    bound, by = bound_ms(4 * (2 * nn * f + 3 * e + nn), 2 * e * f)
+    # kernel C: the arc-weight gradient, at the largest partition and at
+    # the one with the most padding arcs (one row of ~10^5 arcs)
+    c_row = edge_dot_case(h, g, csr, inv, "largest partition")
+    hp = heavy["p"]
+    c_heavy = edge_dot_case(
+        tens.features[hp].contiguous(),
+        torch.randn((nn, f), generator=gen, device=dev), tens.csrs[hp],
+        ops.inv_degree(tens.in_degree[hp]), "heavy partition")
     kernels.append({
         "name": "edge_dot", "route": "cuda",
         "source": "src/repro_torch/csrc/edge_dot.cu",
         "replaces": "src/repro/kernels/csr_aggregate.py:190",
         "launches": train_launches["edge_dot"],
         "launches_arc_weight_backward_phase": edge_launches,
-        "max_abs_err": err,
-        "ms": time_ms(lambda: kernel_c.launch(h, g, csr.src, csr.dst, inv)),
-        "plain_ms": time_ms(lambda: kernel_c.plain(h, g, csr.src, csr.dst,
-                                                   inv)),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
-            sp_c, g_scaled, h_t, beta=0.0)),
-        "shape": {"N": nn, "F": f, "E": e, "E_live": e_live,
-                  "partition": p}})
+        **c_row, "max_abs_err": max(c_row["max_abs_err"],
+                                    c_heavy["max_abs_err"]),
+        "shape": {**c_row["shape"], "partition": p},
+        "heavy_partition": {**c_heavy, "partition": hp}})
 
     # kernel A at the serving path's inductive buckets
     buckets = row["inductive_buckets"]
@@ -1397,8 +1506,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 9. the LM serving main path ---------------------------------------
-    lm_params, lm_cfg, lm_report, d_launches, serve_err, lm_prof = \
-        lm_serving(dev)
+    lm_params, lm_cfg, lm_report, d_launches, serve_err, lm_prof, \
+        serving = lm_serving(dev)
 
     # -- 10. long-cache decode ---------------------------------------------
     long_err, long_step_s = lm_long_cache(lm_params, lm_cfg, dev)
@@ -1406,18 +1515,20 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 11. kernel D against its plain version, timed ---------------------
-    d_rows = kernel_d_against_plain(dev)
-    top = d_rows["decode_32k"]
+    d_rows = kernel_d_against_plain(dev, serving)
+    top = d_rows["serving"]         # where the serving run's launches are
     kernels.append({
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:26",
         "launches": d_launches,
         "max_abs_err": max(r["max_abs_err"] for r in d_rows.values()),
+        "bitwise_repeatable": top["bitwise_repeatable"],
+        "device_ms": top["device_ms"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"], "shape": top["shape"],
-        "shapes": {k: v for k, v in d_rows.items() if k != "decode_32k"},
+        "shapes": {k: v for k, v in d_rows.items() if k != "serving"},
         "lm_logits_err": {"serve_step": serve_err,
                           "long_cache_step": long_err},
         "lm_decode_profile": lm_prof,

@@ -1,8 +1,10 @@
 """Kernel C: the aggregation's edge-weight gradient.
 
-``dw[e] = inv[dst[e]] * Σ_f h[src[e], f] · g[dst[e], f]`` for a cotangent
-``g``. The kernel is ``csrc/edge_dot.cu``, which gathers both rows itself;
-its plain version is :func:`repro_torch.kernels.ref.edge_dot_ref`
+``dw[e] = Σ_f h[src[e], f] · (inv ⊙ g)[dst[e], f]`` for a cotangent ``g``.
+The kernel is ``csrc/edge_dot.cu``, a CSR row walk that gathers both rows
+itself: each warp walks ``SPAN`` consecutive arcs, ``BATCH`` at a time,
+``PASS`` columns a pass, and holds ``(inv ⊙ g)[dst]`` until ``dst``
+changes. Its plain version is :func:`repro_torch.kernels.ref.edge_dot_ref`
 (re-exported here as ``plain``), which builds the two ``[E, F]`` gathers.
 :func:`edge_dot` dispatches: a CPU tensor takes the plain version, a CUDA
 tensor the kernel.
@@ -22,6 +24,10 @@ __all__ = ["edge_dot", "launch", "plain", "launches"]
 
 #: Kernel launches since the last reset (see ``ops.reset_launch_counts``).
 launches = 0
+
+SPAN = 64                  # arcs a warp walks, as in the source
+BATCH = 8                  # arcs whose h rows are in flight at once
+PASS = 128                 # feature columns a pass
 
 _lib_cache = None
 
@@ -59,12 +65,15 @@ def launch(h: torch.Tensor, g: torch.Tensor, src: torch.Tensor,
         check_tensor("inv_scale", inv_scale, torch.float32, (n,), device)
     out = torch.empty((e,), dtype=torch.float32, device=device)
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.edge_dot_f32(
-            h.data_ptr(), g.data_ptr(), src.data_ptr(), dst.data_ptr(),
+    args = (h.data_ptr(), g.data_ptr(), src.data_ptr(), dst.data_ptr(),
             inv_scale.data_ptr() if inv_scale is not None else None,
-            out.data_ptr(), e, f, stream)
+            out.data_ptr(), e, f)
+    if device.index == torch.cuda.current_device():
+        err = lib.edge_dot_f32(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = lib.edge_dot_f32(*args,
+                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("edge_dot kernel launch failed: "
                            + lib.edge_dot_error(err).decode())

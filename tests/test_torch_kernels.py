@@ -23,6 +23,11 @@ The CUDA kernels split the work by merge path (``csrc/csr_rows.cuh``); a
 numpy walk of the same split checks on the CPU that every arc is summed
 once, in CSR order, by warps that walk at most ``2 * split(n, e).items``
 items, and that the partial sums of cut rows add up to the plain result.
+Kernel C walks the arcs in equal spans instead; a numpy walk of its spans
+(``SPAN`` arcs a warp, ``BATCH`` at a time, ``PASS`` columns a pass, the
+scaled g row reloaded only where ``dst`` changes) is held against
+``edge_dot_ref`` at 3e-5 on spans that cross rows, empty rows, a hub row
+across many spans, and F = 96 and 130.
 """
 import numpy as np
 import pytest
@@ -359,6 +364,65 @@ def test_merge_path_split_sums_every_arc_once(case, with_inv):
     np.testing.assert_allclose(out, expect.numpy(), **TOL)
 
 
+def _edge_dot_span_walk(h, g, src, dst, inv):
+    """Kernel C's walk in numpy: each warp takes ``SPAN`` consecutive arcs,
+    ``PASS`` columns a pass (at least one), ``BATCH`` arcs at a time; it
+    holds ``(inv * g)[dst]`` and loads it again only where ``dst`` changes
+    (so every span loads its first row itself); each pass adds its 8
+    partial dots into ``dw`` in pass order. Returns ``dw`` and the g rows
+    each span loaded in its first pass."""
+    e, f = src.shape[0], h.shape[1]
+    span, batch, cols = edge_kernel.SPAN, edge_kernel.BATCH, edge_kernel.PASS
+    scale = np.ones(h.shape[0], np.float32) if inv is None else inv
+    out = np.full(e, np.nan, np.float32)
+    loads = []
+    for a0 in range(0, e, span):
+        n_arcs = min(span, e - a0)
+        first_pass_loads = 0
+        for c0 in range(0, max(f, 1), cols):
+            cur, gv = -1, None
+            for j0 in range(0, n_arcs, batch):
+                for a in range(j0, min(j0 + batch, n_arcs)):
+                    d = dst[a0 + a]
+                    if d != cur:
+                        cur = d
+                        gv = g[d, c0:c0 + cols] * scale[d]
+                        first_pass_loads += c0 == 0
+                    part = np.float32(np.dot(h[src[a0 + a], c0:c0 + cols],
+                                             gv))
+                    out[a0 + a] = part if c0 == 0 else out[a0 + a] + part
+        loads.append(first_pass_loads)
+    return out, loads
+
+
+@pytest.mark.parametrize("case", ["sorted", "hub", "pad_heavy"])
+@pytest.mark.parametrize("f", [96, 128, 130])
+@pytest.mark.parametrize("with_inv", [True, False])
+def test_edge_dot_span_walk_matches_plain(case, f, with_inv):
+    """Kernel C's span walk against ``edge_dot_ref`` (3e-5 against the sum
+    of absolute terms): spans cross row boundaries, rows in the upper half
+    are empty, the hub row (3,000 arcs) and the padding row span many
+    warps, and each span loads one g row per run of equal ``dst``."""
+    h, src, dst, w, deg, _, _ = _graph(case, f=f)
+    n = h.shape[0]
+    g = np.random.default_rng(f).normal(size=(n, f)).astype(np.float32)
+    inv = (1.0 / np.maximum(deg, 1.0)).astype(np.float32) if with_inv \
+        else None
+    csr = ops.to_csr(_t(src), _t(dst), _t(w), n)
+    cs, cd = csr.src.numpy(), csr.dst.numpy()
+    out, loads = _edge_dot_span_walk(h, g, cs, cd, inv)
+    span = edge_kernel.SPAN
+    runs = [1 + int((np.diff(cd[a:a + span]) != 0).sum())
+            for a in range(0, cd.size, span)]
+    assert loads == runs
+    assert max(np.bincount(cd)) > 2 * span or case == "sorted"
+    inv_t = None if inv is None else _t(inv)
+    expect = edge_kernel.plain(_t(h), _t(g), csr.src, csr.dst, inv_t)
+    abs_sum = edge_kernel.plain(_t(np.abs(h)), _t(np.abs(g)), csr.src,
+                                csr.dst, inv_t)
+    _assert_sum_close(_t(out), expect, abs_sum)
+
+
 @pytest.mark.parametrize("n,e", [(1, 0), (33, 32), (264, 256),
                                  (79344, 325288), (10 ** 7, 10 ** 8)])
 def test_split_bounds_the_items_per_warp(n, e):
@@ -612,3 +676,38 @@ def test_cuda_kernels_are_bitwise_deterministic(cuda):
     for name, call in calls.items():
         first, second = call(), call()
         assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hub", "pad_heavy"])
+@pytest.mark.parametrize("f", [24, 96, 128, 130, 300])
+def test_cuda_edge_dot_widths(cuda, case, f):
+    """Kernel C at feature widths off its float4 columns and its 128-wide
+    pass, on rows that span many warps, against the plain version (3e-5
+    against the sum of absolute terms), with and without ``inv``."""
+    h, src, dst, w, deg, _, _ = _graph(case, f=f)
+    n = h.shape[0]
+    g = _t(np.random.default_rng(f).normal(size=(n, f)).astype(np.float32),
+           cuda)
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc = _t(h, cuda)
+    for inv in (ops.inv_degree(_t(deg, cuda)), None):
+        out = edge_kernel.launch(hc, g, csr.src, csr.dst, inv)
+        _assert_sum_close(out, edge_kernel.plain(hc, g, csr.src, csr.dst,
+                                                 inv),
+                          edge_kernel.plain(hc.abs(), g.abs(), csr.src,
+                                            csr.dst, inv))
+
+
+@pytest.mark.cuda
+def test_cuda_edge_dot_is_bitwise_repeatable(cuda):
+    """Two calls of kernel C on skewed rows give bitwise-equal outputs."""
+    h, src, dst, w, deg, _, _ = _skewed()
+    n = h.shape[0]
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc, inv = _t(h, cuda), ops.inv_degree(_t(deg, cuda))
+    g = torch.randn(hc.shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    first = edge_kernel.launch(hc, g, csr.src, csr.dst, inv)
+    assert torch.equal(first, edge_kernel.launch(hc, g, csr.src, csr.dst,
+                                                 inv))
