@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN serving, GCN training, the paper's
-partitioner comparison, Proteins training and LM serving paths on one
-NVIDIA GPU.
+partitioner comparison, Proteins training, LM serving and the sync and
+stale training modes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,8 @@ Phases, each fatal on failure:
    256-wide classifier with seeded weights, pooled table, bundle export and
    load, ``warmup()``, then 2,000 Zipf queries with 10% unseen nodes. Every
    known-node answer must equal the offline key, and kernels A and B must
-   have launched during this run;
+   have launched during this run. The partition goes through an artifact
+   cache that phases 5 and 14 hit;
 4. checks: the inductive logits of one batch against the plain path on the
    same batch; the inference pipeline on karate on the card against the
    plain CPU path;
@@ -31,7 +32,8 @@ Phases, each fatal on failure:
    parameters with dropout 0, k = 4: karate GCN for 60 epochs; arxiv-like
    at 2,000 nodes for 20 epochs with GCN, SAGE, GCN ``low_memory``, GCN
    ``integrate`` model_avg and ensemble; proteins-like at 2,000 nodes
-   (multilabel) for 20 epochs with GCN and SAGE. Through
+   (multilabel) for 20 epochs with GCN and SAGE; arxiv-like at 2,000
+   nodes in sync and in stale(2) mode, GCN, 20 epochs. Through
    ``repro_torch.tools.training_parity.compare_training``: per-epoch
    losses within 1e-4 over the whole run (SAGE on arxiv-like: over the
    first 2 epochs) and the pooled table after 2 epochs within 1e-3 (abs +
@@ -40,7 +42,8 @@ Phases, each fatal on failure:
    75-81x that tolerance under any legitimate change of rounding (an f64
    product, a reversed-chunk f32 product), and SAGE's losses on arxiv-like
    by 2.0-2.4x at epochs 6-7, so those are printed, not held (ROADMAP
-   C.1). Kernels A and B must launch in every card run;
+   C.1). Kernels A and B (and, in sync and stale, the exchange's backward)
+   must launch in every card run;
 7. gradients at the main path's largest partition: both kernels'
    ``autograd.Function``s against autograd of the plain forward, and one
    backward of the whole GCN with arc-weight gradients, the path of its
@@ -100,7 +103,21 @@ Phases, each fatal on failure:
    version and ``torch.sparse.mm``;
 13. proteins-like at its default (6,000 nodes, 112 binary tasks, average
    degree 80), k = 8, GCN and SAGE for 60 epochs: the test mean ROC-AUC
-   must beat 0.5 and the seeded, untrained run's.
+   must beat 0.5 and the seeded, untrained run's;
+14. the paper's communication-vs-accuracy frontier at the main path's
+   configuration (phase 5's partition, from the cache, which gains the
+   halo plan): sync (the halo exchange before every layer of every step)
+   and stale(4) (every 4th epoch), 60 epochs and the classifier, beside
+   phase 5's local run. Per mode: exchange epochs, the reference's
+   collective bytes a step and an epoch beside the schedule's count, the
+   live exchange MB a layer, ms per epoch, test accuracy. Gates: finite
+   losses; kernels A, B and the exchange's backward (kernel A) launched in
+   every run; the exchange on all 60 epochs in sync and on stale(4)'s 15
+   only; bytes sync > stale(4) > local = 0; sync's test accuracy above
+   chance and the seeded run's; two sync steps from one state bitwise
+   equal; the exchange's forward equal to plain indexing and its backward
+   within 3e-5 of autograd's (against the sum of absolute terms), timed
+   beside its bound, its plain version and ``index_add_``.
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
@@ -312,6 +329,10 @@ PARITY_RUNS = (
      True),
     ("proteins-like 2k sage multilabel", "proteins-like", {"n": 2000}, 20,
      {"model": "sage"}, True),
+    ("arxiv-like 2k gcn sync", "arxiv-like", {"n": 2000}, 20,
+     {"mode": "sync"}, True),
+    ("arxiv-like 2k gcn stale(2)", "arxiv-like", {"n": 2000}, 20,
+     {"mode": "stale", "sync_period": 2}, True),
 )
 
 
@@ -335,11 +356,12 @@ def train_on_card_vs_cpu(dev):
                                lambda c: run_training(c, device="cpu"),
                                None if all_losses else TABLE_EPOCHS)
         launches = ops.launch_counts()
-        row["launches"] = {k: launches[k] for k in (
-            "fused_gcn_layer_need_agg", "csr_aggregate")}
+        path = ("fused_gcn_layer_need_agg", "csr_aggregate") + (
+            ("exchange_backward",) if cfg.mode != "local" else ())
+        row["launches"] = {k: launches[k] for k in path}
         print(f"train card vs cpu [{label}, k=4]: {json.dumps(row)}")
         check(all(row["launches"].values()),
-              f"{label}: kernels A and B did not both launch: {launches}")
+              f"{label}: a kernel of the path did not launch: {launches}")
         check(row["loss_ratio"] <= 1.0,
               f"{label}: per-epoch losses of the first {row['loss_epochs']} "
               f"epochs on the card disagree with the CPU "
@@ -1184,6 +1206,243 @@ def proteins_on_card(dev):
     return rows
 
 
+def schedule_bytes(k, h_pad, widths):
+    """The reference's collective bytes of a sync step, from the schedule
+    (counted here, apart from the port's ``exchange_collective_bytes``):
+    an all-gather of ``[k, k, H_pad, F_i]`` f32 before each layer, a
+    reduce-scatter of ``[1, k, H_pad, F_i]`` for each layer but the
+    first."""
+    return (sum(k * k * h_pad * f * 4 for f in widths)
+            + sum(k * h_pad * f * 4 for f in widths[1:]))
+
+
+def profile_step(step, what, steps=2):
+    """Device time by kernel over ``steps`` calls of ``step`` (a training
+    step, inputs bound), the device busy and idle share and the kernels a
+    step (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split = {"kernel A (gather, fix-up)": 0.0, "kernel B product": 0.0,
+             "cublas gemm": 0.0, "copy and index (exchange, stack)": 0.0,
+             "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        key = ("kernel A (gather, fix-up)" if "csr_aggregate_" in name else
+               "kernel B product" if "fused_gcn_product" in name else
+               "cublas gemm" if any(w in name for w in (
+                   "gemm", "cutlass", "xmma", "nvjet", "sm90")) else
+               "copy and index (exchange, stack)" if any(w in name for w in (
+                   "index", "copy", "cat", "gather", "scatter")) else
+               "other")
+        split[key] += e.time_range.elapsed_us()
+    busy = sum(split.values())
+    row = {"wall_ms_per_step": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "idle_share": 1 - busy / wall_us, "kernels_per_step": n / steps,
+           "device_ms_per_step": {k: v / steps / 1e3
+                                  for k, v in split.items()}}
+    print(f"profile, {what} ({steps} steps, profiler on): {json.dumps(row)}")
+    check(busy > 0, f"the profile of {what} saw no kernel")
+    return row
+
+
+def exchange_against_plain(result, dev):
+    """The exchange Function on the main path's plan against autograd of
+    plain indexing (3e-5 against the sum of absolute terms), two backward
+    calls bitwise equal, and kernel A as its backward, timed: CUDA events,
+    device time (profiler), the plain version, ``index_add_``, the bound.
+    Returns the record."""
+    import torch
+    from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import exchange
+    from repro_torch.tools.kernel_turns import device_us as profiled
+    batch = result.batch
+    pl = exchange.plan(result.bundle.halo, batch.n_pad, dev)
+    f = result.gnn.hidden_dim
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h = torch.randn((batch.k, batch.n_pad, f), generator=gen, device=dev)
+    g = torch.randn(h.shape, generator=gen, device=dev)
+
+    def grads(fn, cot):
+        x = h.clone().requires_grad_()
+        out = fn(x, pl)
+        (out * cot).sum().backward()
+        return out.detach(), x.grad
+    out, dh = grads(exchange.exchange, g)
+    out_ref, dh_ref = grads(exchange.plain, g)
+    _, scale = grads(exchange.plain, g.abs())
+    check(torch.equal(out, out_ref),
+          "the exchange's forward differs from plain indexing")
+    err = max_err(dh, dh_ref, scale, "exchange backward (kernel A)")
+    check(torch.equal(dh, grads(exchange.exchange, g)[1]),
+          "the exchange's backward: two calls differ")
+    del dh_ref, scale, out_ref
+    csr = pl.csr
+    rows, e = csr.num_nodes, int(csr.src.shape[0])
+    flat = g.reshape(rows, f)
+    keep = ~pl.received.reshape(rows, 1)
+
+    def call():
+        return exchange.backward_sum(g, pl)
+
+    def library():
+        return torch.index_add(flat * keep, 0, pl.send,
+                               flat.index_select(0, pl.recv))
+    check(torch.allclose(library(), call().reshape(rows, f), rtol=1e-5,
+                         atol=1e-5), "index_add_ does not compute the "
+                                     "exchange's backward")
+    us, per_call = profiled(call, ("csr_aggregate_gather",
+                                   "csr_aggregate_fixup"))
+    # g read once (every row: kept rows by their self arc, received rows
+    # by the arc of the slot they fill), the arcs and row offsets, the
+    # output written once; one multiply-add per arc and feature
+    bound, by = bound_ms(4 * (2 * rows * f + 2 * e + rows + 1), 2 * e * f)
+    row = {"max_abs_err": err, "bitwise_repeatable": True,
+           "device_ms": us * round(per_call) / 1e3,
+           "profiled_launches_per_call": per_call,
+           "ms": time_ms(call),
+           "plain_ms": time_ms(lambda: kernel_a.plain(
+               flat, csr.src, csr.dst, csr.weight, rows)),
+           "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library),
+           "forward_ms": time_ms(lambda: exchange.exchange(h, pl)),
+           "shape": {"rows": rows, "F": f, "arcs": e, "pairs": pl.pairs,
+                     "k": batch.k, "N_pad": batch.n_pad,
+                     "h_pad": int(result.bundle.halo.h_pad)}}
+    print(f"exchange backward (kernel A), main path: {json.dumps(row)}")
+    return row
+
+
+def frontier_on_card(dev, ds, cache_dir, local, seeded_acc):
+    """Phase 14: the paper's communication-vs-accuracy frontier at the main
+    path's width: sync and stale(4) beside phase 5's local run (``local``:
+    its row). Gates: finite losses, kernels A and B (and the exchange's
+    backward) launched in every run, the exchange on all 60 epochs in sync
+    and on the 15 of stale(4)'s schedule only, the bytes order sync >
+    stale(4) > local = 0, sync's test accuracy above chance and the seeded
+    run's, two sync steps bitwise equal, the exchange against its plain
+    version. Returns (rows, the exchange's ``kernels`` row)."""
+    import numpy as np
+    import torch
+    from repro_torch.gnn.halo import make_sync_train_step
+    from repro_torch.gnn.train import dropout_generators
+    from repro_torch.kernels import exchange, ops
+    from repro_torch.optim import adamw_init
+    from repro_torch.pipeline.pipeline import PipelineConfig, run_training
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    rows = {"local": local}
+    for mode in ("sync", "stale"):
+        cfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
+                             mode=mode, sync_period=4, cache_dir=cache_dir,
+                             dataset_kwargs={"scale": ARXIV_SCALE})
+        ops.reset_launch_counts()
+        result = run_training(cfg, device=dev, ds=ds)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        halo, batch, col = result.bundle.halo, result.batch, result.collectives
+        widths = [result.gnn.feature_dim] + [result.gnn.hidden_dim] * (
+            result.gnn.num_layers - 1)
+        on = [e for e in range(cfg.epochs) if mode == "sync" or e % 4 == 0]
+        step_bytes = schedule_bytes(batch.k, halo.h_pad, widths)
+        pairs = int((halo.recv_rows >= 0).sum())
+        label = "sync" if mode == "sync" else "stale(4)"
+        row = {"exchange_epochs": int((result.exchanges > 0).sum()),
+               "collectives_total": col["total"],
+               "schedule_total": step_bytes,
+               "per_epoch_avg": col["per_epoch_avg"],
+               "schedule_per_epoch_avg": int(round(
+                   step_bytes * len(on) / cfg.epochs)),
+               "live_exchange_mb_per_layer": pairs * widths[-1] * 4 / 1e6,
+               "padded_gather_mb_per_layer":
+                   batch.k * batch.k * halo.h_pad * widths[-1] * 4 / 1e6,
+               "pairs": pairs, "h_pad": int(halo.h_pad),
+               "ms_per_epoch": 1e3 * result.timings["train_epochs"]
+               / cfg.epochs,
+               "accuracy": result.accuracy,
+               "loss_first": float(result.losses[0].mean()),
+               "loss_last": float(result.losses[-1].mean()),
+               "batch_cache_hit": result.bundle.batch_hit,
+               "timings": result.timings,
+               "launches": {k: launches[k] for k in (
+                   "fused_gcn_layer_need_agg", "csr_aggregate",
+                   "exchange_backward")}}
+        print(f"frontier [{label}]: {json.dumps(row)}", flush=True)
+        check(bool(np.isfinite(result.losses).all()),
+              f"{label}: non-finite training loss")
+        check(all(row["launches"][k] > 0 for k in (
+            "fused_gcn_layer_need_agg", "csr_aggregate",
+            "exchange_backward")),
+              f"{label}: a kernel of the path did not launch: {launches}")
+        expect = [result.gnn.num_layers if e in on else 0
+                  for e in range(cfg.epochs)]
+        check(result.exchanges.tolist() == expect,
+              f"{label}: exchanges by epoch {result.exchanges.tolist()}, "
+              f"expected {expect}")
+        check(col["total"] == step_bytes
+              and col["per_epoch_avg"] == row["schedule_per_epoch_avg"],
+              f"{label}: the collective report {col} disagrees with the "
+              f"schedule ({step_bytes} a step)")
+        rows[label] = row
+        if mode == "sync":
+            sync_launches = launches["exchange_backward"]
+            acc = result.accuracy["test"]
+            check(acc > 1 / 40 and acc > seeded_acc,
+                  f"sync: test accuracy {acc} does not beat chance and the "
+                  f"seeded run's {seeded_acc}")
+            # two sync steps from the trained state, bitwise
+            step = make_sync_train_step(
+                result.gnn, exchange.plan(halo, batch.n_pad, dev), False,
+                cfg.lr)
+            twice = [step(result.params,
+                          adamw_init(result.params, stacked=True),
+                          result.tensors, dropout_generators(0, batch.k, dev))
+                     for _ in range(2)]
+            check(all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(twice[0][0]), tree_leaves(twice[1][0])))
+                  and torch.equal(twice[0][2], twice[1][2]),
+                  "two sync steps from one state differ on the card")
+            del twice
+            opt, gens = (adamw_init(result.params, stacked=True),
+                         dropout_generators(0, batch.k, dev))
+            row["profile"] = profile_step(
+                lambda: step(result.params, opt, result.tensors, gens),
+                "sync steps at the main path")
+            kernel_row = exchange_against_plain(result, dev)
+        del result
+        torch.cuda.empty_cache()
+    check(rows["sync"]["per_epoch_avg"] > rows["stale(4)"]["per_epoch_avg"]
+          > local["per_epoch_avg"] == 0,
+          "bytes per epoch are not ordered sync > stale(4) > local = 0")
+    print("frontier table (arxiv-like 169,343 nodes, k=8, repli, GCN 3x128, "
+          "60 epochs):")
+    print(f"  {'mode':9s} {'exch':>5s} {'bytes/step':>14s} "
+          f"{'bytes/epoch':>14s} {'ms/ep':>7s} {'test':>6s}")
+    for label, r in rows.items():
+        print(f"  {label:9s} {r['exchange_epochs']:5d} "
+              f"{r['collectives_total']:14d} {r['per_epoch_avg']:14d} "
+              f"{r['ms_per_epoch']:7.2f} {r['accuracy']['test']:6.4f}")
+    print(f"frontier phase: {time.perf_counter() - t0:.1f} s wall")
+    kernel = {
+        "name": "csr_aggregate_exchange_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/csr_aggregate.cu",
+        "replaces": "src/repro/kernels/csr_aggregate.py:148",
+        "launches": sync_launches, **kernel_row}
+    return rows, kernel
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1230,10 +1489,14 @@ def main():
     check(hmma is None or hmma > 0,
           "kernel D's library has no tensor-core instruction")
 
+    # phases 3, 5 and 14 share one partition through the artifact cache
+    main_cache = tempfile.TemporaryDirectory(prefix="chip_smoke-main-cache-",
+                                             dir=ROOT)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-", dir=ROOT) as tmp:
         # -- 3. the serving main path, seeded weights ---------------------
         cfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
                              serving_dir=os.path.join(tmp, "seeded"),
+                             cache_dir=main_cache.name,
                              dataset_kwargs={"scale": ARXIV_SCALE})
         ops.reset_launch_counts()
         result = run_inference(cfg, device=dev)
@@ -1289,6 +1552,7 @@ def main():
         # -- 5. the training main path ------------------------------------
         tcfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
                               serving_dir=os.path.join(tmp, "trained"),
+                              cache_dir=main_cache.name,
                               dataset_kwargs={"scale": ARXIV_SCALE})
         ops.reset_launch_counts()
         trained = run_training(tcfg, device=dev, ds=result.dataset)
@@ -1321,6 +1585,21 @@ def main():
               and acc["test"] > seeded_acc,
               f"trained test accuracy {acc['test']} does not beat chance "
               f"and the seeded run ({seeded_acc})")
+        # local mode's row of phase 14's frontier
+        local_row = {"exchange_epochs": 0,
+                     "collectives_total": trained.collectives["total"],
+                     "schedule_total": 0,
+                     "per_epoch_avg": trained.collectives["per_epoch_avg"],
+                     "schedule_per_epoch_avg": 0,
+                     "live_exchange_mb_per_layer": 0.0,
+                     "ms_per_epoch": 1e3 * tt["train_epochs"] / tcfg.epochs,
+                     "accuracy": acc,
+                     "loss_first": float(trained.losses[0].mean()),
+                     "loss_last": float(trained.losses[-1].mean()),
+                     "launches": {k: train_launches[k] for k in (
+                         "fused_gcn_layer_need_agg", "csr_aggregate",
+                         "exchange_backward")}}
+        main_ds = result.dataset
 
     # -- 6. training on the card against the CPU path -------------------
     parity = train_on_card_vs_cpu(dev)
@@ -1550,6 +1829,14 @@ def main():
 
     # -- 13. proteins-like on the card ---------------------------------------
     proteins = proteins_on_card(dev)
+
+    # -- 14. the frontier: sync and stale(4) beside local ---------------------
+    torch.cuda.empty_cache()
+    frontier, exchange_kernel = frontier_on_card(dev, main_ds,
+                                                 main_cache.name, local_row,
+                                                 seeded_acc)
+    main_cache.cleanup()
+    kernels.append(exchange_kernel)
     print("summary: " + json.dumps({
         "phase6": {k: {f: v[f] for f in ("loss_ratio", "table_ratio",
                                          "table_ratio_full")}
@@ -1557,7 +1844,11 @@ def main():
         "comparison_test_acc": {m: r["accuracy"]["test"]
                                 for m, r in comparison.items()},
         "proteins_test_auc": {m: r["auc"]["test"]
-                              for m, r in proteins.items()}}))
+                              for m, r in proteins.items()},
+        "frontier": {m: {"test_acc": r["accuracy"]["test"],
+                         "bytes_per_epoch": r["per_epoch_avg"],
+                         "ms_per_epoch": r["ms_per_epoch"]}
+                     for m, r in frontier.items()}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """Partitioning (numpy), the port's own copy: Leiden-Fusion, the paper's
 baselines behind the partitioner registry and spec strings, partition
 metrics, and the per-partition assembly."""
-from .assemble import (INTEGRATION_KINDS, PartitionBatch,
-                       average_partition_params, build_partition_batch,
-                       integrate_models)
+from .assemble import (INTEGRATION_KINDS, HaloExchangeSpec, PartitionBatch,
+                       average_partition_params, build_halo_exchange,
+                       build_partition_batch, integrate_models)
 from .engine import (CommunityState, QuotientEdges, connected_components,
                      quotient_edges, split_components)
 from .fusion import fuse, leiden_fusion
@@ -23,8 +23,9 @@ from .registry import (Capabilities, FusionConfig, NullConfig,
 from .spec import (PartitionResult, PartitionerSpec, parse_spec_text,
                    partition_from_spec)
 
-__all__ = ["INTEGRATION_KINDS", "PartitionBatch",
-           "average_partition_params", "build_partition_batch",
+__all__ = ["INTEGRATION_KINDS", "HaloExchangeSpec", "PartitionBatch",
+           "average_partition_params", "build_halo_exchange",
+           "build_partition_batch",
            "integrate_models", "CommunityState",
            "QuotientEdges", "connected_components", "quotient_edges",
            "split_components", "fuse", "leiden_fusion", "Graph",

@@ -11,9 +11,11 @@ subgraph, padded to one static shape so the k subgraphs stack:
   - ``owned_mask`` is True for nodes the partition owns (embedding rows);
     halo replicas appear in Repli batches with ``owned=False``.
 
-It also holds the model-integration step that averages the k trained
-partition models (``average_partition_params``, ``integrate_models``), on
-stacked parameter tensors.
+It also plans the halo exchange of the sync and stale training modes
+(``build_halo_exchange``: which rows every partition sends every peer, and
+where they land), and holds the model-integration step that averages the
+k trained partition models (``average_partition_params``,
+``integrate_models``), on stacked parameter tensors.
 """
 from __future__ import annotations
 
@@ -123,6 +125,59 @@ def build_partition_batch(g: Graph, labels: np.ndarray, scheme: str = "inner",
                           owned_mask=owned_mask, edge_src=edge_src,
                           edge_dst=edge_dst, edge_weight=edge_weight,
                           in_degree=in_degree, n_pad=n_pad, e_pad=e_pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloExchangeSpec:
+    """The halo exchange of the sync and stale modes (per layer), in the
+    reference's dense layout: ``send_rows[q, p, j]`` is the local row in
+    ``q`` of the ``j``-th row ``q`` sends ``p``, and ``recv_rows[p, q, j]``
+    the halo row of ``p`` it overwrites; both are -1 past the pair's
+    count."""
+    send_rows: np.ndarray   # [k, k, H_pad] int32, -1 = padding
+    recv_rows: np.ndarray   # [k, k, H_pad] int32, -1 = padding
+    h_pad: int
+
+
+def build_halo_exchange(g: Graph, labels: np.ndarray,
+                        batch: PartitionBatch) -> HaloExchangeSpec:
+    """Plan the halo transfers of a Repli batch: every valid, not owned row
+    of partition ``p`` is fetched from its owner ``q = labels[node]``.
+
+    The arrays are byte-identical to the reference's
+    ``build_halo_exchange``: each pair's rows in ascending order of the
+    receiving row, ``h_pad`` the largest pair's count (at least 1).
+    ``g`` is unused, as in the reference."""
+    labels = np.asarray(labels, dtype=np.int64)
+    k = batch.k
+    ids = np.asarray(batch.node_ids, dtype=np.int64)
+    # the local row of every node in every partition that holds it
+    row_of = np.full((k, labels.shape[0]), -1, dtype=np.int64)
+    for p in range(k):
+        rows = np.nonzero(ids[p] >= 0)[0]
+        row_of[p, ids[p, rows]] = rows
+    plans = []
+    for p in range(k):
+        recv = np.nonzero(batch.node_mask[p] & ~batch.owned_mask[p])[0]
+        owner = labels[ids[p, recv]]
+        order = np.argsort(owner, kind="stable")
+        recv, owner = recv[order], owner[order]
+        send = row_of[owner, ids[p, recv]]
+        if (send < 0).any():
+            raise ValueError(f"partition {p} holds a halo node that its "
+                             f"owner's partition does not hold")
+        counts = np.bincount(owner, minlength=k)
+        slot = np.arange(recv.shape[0]) - np.repeat(
+            np.cumsum(counts) - counts, counts)
+        plans.append((owner, slot, send, recv, counts))
+    h_pad = max(max(int(pl[4].max(initial=0)) for pl in plans), 1)
+    send_rows = np.full((k, k, h_pad), -1, dtype=np.int32)
+    recv_rows = np.full((k, k, h_pad), -1, dtype=np.int32)
+    for p, (owner, slot, send, recv, _) in enumerate(plans):
+        send_rows[owner, p, slot] = send
+        recv_rows[p, owner, slot] = recv
+    return HaloExchangeSpec(send_rows=send_rows, recv_rows=recv_rows,
+                            h_pad=h_pad)
 
 
 def average_partition_params(params: Any,

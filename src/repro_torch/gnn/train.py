@@ -1,6 +1,11 @@
-"""Local training, the paper's scheme: k GNN replicas, one per partition,
-each trained on its own subgraph with no communication; then the MLP
-classifier on the pooled embeddings.
+"""Training of the k partition models, and the MLP classifier on the
+pooled embeddings.
+
+Three modes train the k GNN replicas: local, the paper's scheme, here
+(each partition trains on its own subgraph with no communication); sync,
+the halo-exchange baseline, and stale, which exchanges every N epochs,
+in :mod:`repro_torch.gnn.halo` (their steps reuse this module's local
+step, integration and classifier).
 
 The reference vmaps one partition's AdamW step over the k partitions. Here
 the k partitions are a loop inside each epoch, which is the same math,
@@ -41,10 +46,14 @@ __all__ = ["LocalTraining", "dropout_generators", "partition_loss",
 
 
 class LocalTraining(NamedTuple):
+    """What a training mode returns (local, and sync and stale in
+    :mod:`repro_torch.gnn.halo`)."""
     params: Params              # stacked [k, ...], after integration
     embeddings: torch.Tensor    # [n, E] pooled table
     losses: np.ndarray          # [epochs, k] loss of every partition's step
     seconds: Dict[str, float]   # "epochs" (the loop), "embed" (+ pooling)
+    exchanges: Optional[np.ndarray] = None   # [epochs] halo exchanges in
+                                             # each step (sync and stale)
 
 
 def dropout_generators(seed: int, k: int, device: torch.device

@@ -5,6 +5,8 @@ goes to the hand-written CUDA kernel, which launches or raises — there is
 no fallback from the card to the plain version.
 
 ``flash_decode`` (kernel D) is the LM's decode attention over a KV cache.
+The sync and stale modes' halo exchange (:mod:`.exchange`) runs kernel A in
+its backward; ``exchange_backward`` counts those launches.
 
 The graph kernels read a CSR over destination rows. :func:`to_csr` builds it
 from an arc list on the arcs' own device: it checks on the device that
@@ -30,6 +32,7 @@ import torch
 
 from . import csr_aggregate as _agg
 from . import edge_dot as _edge_dot
+from . import exchange as _exchange
 from . import flash_decode as _flash
 from . import fused_layer as _fused
 from .flash_decode import flash_decode
@@ -137,7 +140,8 @@ def launch_counts() -> Dict[str, int]:
             "fused_gcn_layer": _fused.launches,
             "fused_gcn_layer_need_agg": _fused.launches_need_agg,
             "edge_dot": _edge_dot.launches,
-            "flash_decode": _flash.launches}
+            "flash_decode": _flash.launches,
+            "exchange_backward": _exchange.launches}
 
 
 def reset_launch_counts() -> None:
@@ -146,6 +150,7 @@ def reset_launch_counts() -> None:
     _fused.launches_need_agg = 0
     _edge_dot.launches = 0
     _flash.launches = 0
+    _exchange.launches = 0
 
 
 def inv_degree(in_degree: torch.Tensor) -> torch.Tensor:

@@ -9,13 +9,14 @@ atomically):
   expensive stage, so it is cached apart from the assembly scheme:
   ``inner`` and ``repli`` runs share one partitioning.
 * **batch bundle**: the padded :class:`~repro_torch.core.PartitionBatch`
-  arrays, keyed by the scheme too.
+  arrays, keyed by the scheme too, and the halo exchange plan of the sync
+  and stale modes (``halo_send_rows``, ``halo_recv_rows``, ``halo_h_pad``)
+  when a run asked for it. A batch hit that lacks the plan is still a hit:
+  the plan is built and the bundle rewritten with it.
 
-The key, its digest, the bundle names and the layout are the reference
-package's (``ARTIFACT_VERSION`` 5), so an entry written by either package
-is a hit in the other. A batch bundle that also holds the reference's halo
-exchange arrays (sync and stale modes, which the port does not run) loads
-as a hit; those arrays are ignored, and the port writes none. Loads check
+The key, its digest, the bundle names, the array names and the layout are
+the reference package's (``ARTIFACT_VERSION`` 5), so an entry written by
+either package is a hit in the other, its halo plan included. Loads check
 the stored metadata against the requested key and treat any mismatch as a
 miss. Arrays load into memory (the reference maps them; the port leaves
 out-of-core paths out).
@@ -35,7 +36,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
-from repro_torch.core import (Graph, PartitionBatch, PartitionerSpec,
+from repro_torch.core import (Graph, HaloExchangeSpec, PartitionBatch,
+                              PartitionerSpec, build_halo_exchange,
                               build_partition_batch, partition_from_spec)
 
 from .datasets import graph_fingerprint
@@ -49,6 +51,7 @@ ARTIFACT_VERSION = 5
 
 _BATCH_FIELDS = ("node_ids", "node_mask", "owned_mask", "edge_src",
                  "edge_dst", "edge_weight", "in_degree")
+_HALO_FIELDS = ("halo_send_rows", "halo_recv_rows", "halo_h_pad")
 
 SpecLike = Union[str, PartitionerSpec]
 
@@ -89,6 +92,7 @@ class ArtifactBundle:
     """What the training stage needs, and where it came from."""
     labels: np.ndarray
     batch: PartitionBatch
+    halo: Optional[HaloExchangeSpec]    # sync and stale modes only
     labels_hit: bool
     batch_hit: bool
     labels_path: Optional[str]
@@ -111,13 +115,16 @@ def _spec_slug(spec: PartitionerSpec) -> str:
 
 
 def compute_bundle(g: Graph, method: SpecLike, k: int, seed: int,
-                   scheme: str) -> ArtifactBundle:
-    """Partition and assemble with no cache."""
+                   scheme: str, with_halo: bool = False) -> ArtifactBundle:
+    """Partition and assemble (and plan the halo exchange when
+    ``with_halo``) with no cache."""
     spec = PartitionerSpec.parse(method)
     result = partition_from_spec(g, spec, k, seed)
     t0 = time.time()
     batch = build_partition_batch(g, result.labels, scheme=scheme)
-    return ArtifactBundle(labels=result.labels, batch=batch,
+    halo = build_halo_exchange(g, result.labels, batch) if with_halo \
+        else None
+    return ArtifactBundle(labels=result.labels, batch=batch, halo=halo,
                           labels_hit=False, batch_hit=False,
                           labels_path=None, batch_path=None,
                           partition_seconds=result.seconds,
@@ -164,10 +171,12 @@ class PartitionArtifactStore:
 
     @staticmethod
     def _load_bundle(path: str, meta: Dict[str, Any],
-                     required: Tuple[str, ...]
+                     required: Tuple[str, ...],
+                     optional: Tuple[str, ...] = ()
                      ) -> Optional[Dict[str, np.ndarray]]:
-        """The bundle's required arrays, or None (a miss) when it is
-        absent, unreadable, incomplete or keyed otherwise."""
+        """The bundle's required arrays and those of ``optional`` it holds,
+        or None (a miss) when it is absent, unreadable, incomplete or keyed
+        otherwise."""
         if not os.path.isdir(path):
             return None
         try:
@@ -177,8 +186,11 @@ class PartitionArtifactStore:
                 log.warning("stale artifact %s (key mismatch), recomputing",
                             path)
                 return None
+            names = required + tuple(
+                n for n in optional
+                if os.path.exists(os.path.join(path, n + ".npy")))
             return {name: np.load(os.path.join(path, name + ".npy"),
-                                  allow_pickle=False) for name in required}
+                                  allow_pickle=False) for name in names}
         except (OSError, ValueError) as e:
             log.warning("unreadable artifact %s (%r), recomputing", path, e)
             return None
@@ -206,41 +218,68 @@ class PartitionArtifactStore:
     # -- batch -----------------------------------------------------------
     def load_or_assemble(self, g: Graph, labels: np.ndarray,
                          method: SpecLike, k: int, seed: int, scheme: str,
+                         with_halo: bool = False,
                          graph_hash: Optional[str] = None
-                         ) -> Tuple[PartitionBatch, bool, str, float]:
-        """Returns (batch, cache_hit, path, assemble_seconds)."""
+                         ) -> Tuple[PartitionBatch, Optional[HaloExchangeSpec],
+                                    bool, str, float]:
+        """Returns (batch, halo, cache_hit, path, assemble_seconds); the
+        halo plan is None unless asked for or stored."""
         spec = PartitionerSpec.parse(method)
         graph_hash = graph_hash or graph_fingerprint(g)
         meta = self._batch_meta(graph_hash, spec, k, seed, scheme)
         path = self._path(meta, spec)
         data = self._load_bundle(path, meta, _BATCH_FIELDS + ("n_pad",
-                                                              "e_pad"))
+                                                              "e_pad"),
+                                 _HALO_FIELDS)
         if data is not None:
-            log.info("batch cache HIT: %s", path)
             batch = PartitionBatch(
                 **{f: data[f] for f in _BATCH_FIELDS},
                 n_pad=int(data["n_pad"]), e_pad=int(data["e_pad"]))
-            return batch, True, path, 0.0
+            halo = None
+            if all(f in data for f in _HALO_FIELDS):
+                halo = HaloExchangeSpec(send_rows=data["halo_send_rows"],
+                                        recv_rows=data["halo_recv_rows"],
+                                        h_pad=int(data["halo_h_pad"]))
+            if with_halo and halo is None:
+                log.info("batch cache HIT (adding the halo plan): %s", path)
+                halo = build_halo_exchange(g, labels, batch)
+                self._save_batch(path, meta, batch, halo)
+            else:
+                log.info("batch cache HIT: %s", path)
+            return batch, halo, True, path, 0.0
         log.info("batch cache MISS: assembling scheme=%s", scheme)
         t0 = time.time()
         batch = build_partition_batch(g, labels, scheme=scheme)
+        halo = build_halo_exchange(g, labels, batch) if with_halo else None
         secs = time.time() - t0
+        self._save_batch(path, meta, batch, halo)
+        return batch, halo, False, path, secs
+
+    def _save_batch(self, path: str, meta: Dict[str, Any],
+                    batch: PartitionBatch,
+                    halo: Optional[HaloExchangeSpec]) -> None:
         arrays = {f: np.asarray(getattr(batch, f)) for f in _BATCH_FIELDS}
         arrays["n_pad"] = np.int64(batch.n_pad)
         arrays["e_pad"] = np.int64(batch.e_pad)
+        if halo is not None:
+            arrays["halo_send_rows"] = np.asarray(halo.send_rows)
+            arrays["halo_recv_rows"] = np.asarray(halo.recv_rows)
+            arrays["halo_h_pad"] = np.int64(halo.h_pad)
         self._save_bundle(path, meta, arrays)
-        return batch, False, path, secs
 
     # -- one call --------------------------------------------------------
     def load_or_compute(self, g: Graph, method: SpecLike, k: int, seed: int,
-                        scheme: str) -> ArtifactBundle:
+                        scheme: str, with_halo: bool = False
+                        ) -> ArtifactBundle:
         spec = PartitionerSpec.parse(method)
         graph_hash = graph_fingerprint(g)
         labels, lhit, lpath, t_part = self.load_or_partition(
             g, spec, k, seed, graph_hash=graph_hash)
-        batch, bhit, bpath, t_asm = self.load_or_assemble(
-            g, labels, spec, k, seed, scheme, graph_hash=graph_hash)
-        return ArtifactBundle(labels=labels, batch=batch, labels_hit=lhit,
+        batch, halo, bhit, bpath, t_asm = self.load_or_assemble(
+            g, labels, spec, k, seed, scheme, with_halo=with_halo,
+            graph_hash=graph_hash)
+        return ArtifactBundle(labels=labels, batch=batch, halo=halo,
+                              labels_hit=lhit,
                               batch_hit=bhit, labels_path=lpath,
                               batch_path=bpath, partition_seconds=t_part,
                               assemble_seconds=t_asm, spec=spec.canonical(),

@@ -9,8 +9,11 @@ artifact cache, and the partitioner registry.
     PYTHONPATH=src python -m repro_torch.pipeline cache --clear
     PYTHONPATH=src python -m repro_torch.pipeline partitioners [--json]
 
-``run`` partitions, trains k GNN replicas locally (no communication), pools
-their embeddings, trains the classifier and prints a report. ``--method``
+``run`` partitions, trains k GNN replicas (``--mode local``, the paper's
+scheme with no communication; ``sync``, the halo-exchange baseline;
+``stale``, the exchange every ``--sync-period`` epochs), pools their
+embeddings, trains the classifier and prints a report with the
+reference's collective bytes of the step. ``--method``
 takes any partitioner spec string (``metis``, ``"lpa(max_iter=30)+f"``,
 ``"leiden_fusion(resolution=0.5)"``); ``partitioners`` lists the registry.
 With ``--cache-dir`` a run loads its partition and assembly from the
@@ -18,8 +21,8 @@ artifact cache there, or computes and stores them; the entries are the
 reference package's, and either package hits the other's. Unlike the
 reference CLI, which caches under the home directory by default, the port
 caches only where it is told to (``--no-cache`` turns a given
-``--cache-dir`` off). The flags are the reference CLI's that local mode
-reads; ``--device`` defaults to ``cuda``.
+``--cache-dir`` off). The flags are the reference CLI's that the ported
+modes read; ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.pipeline",
         description="Leiden-Fusion pipeline on PyTorch: partition -> "
-                    "communication-free GNN training -> embedding assembly "
+                    "GNN training (communication-free, or the sync and "
+                    "stale halo-exchange baselines) -> embedding assembly "
                     "-> node classification.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="run the training pipeline once")
@@ -56,8 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--scheme", default="repli", choices=["inner", "repli"])
     run.add_argument("--mode", default="local",
                      choices=["local", "sync", "stale"],
-                     help="only local (zero communication, the paper) is "
-                          "ported; sync and stale raise")
+                     help="local = zero communication (the paper); sync = "
+                          "halo exchange every step; stale = exchange every "
+                          "--sync-period epochs, frozen halos in between")
+    run.add_argument("--sync-period", type=int, default=4,
+                     help="stale mode: halo-exchange period in epochs "
+                          "(1 ≡ sync, 0 = never exchange ≡ local)")
     run.add_argument("--integrate", default="none",
                      choices=["none", "model_avg", "ensemble"],
                      help="aggregate the k partition models before "
@@ -175,7 +183,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         dataset_kwargs["scale"] = args.dataset_scale
     cfg = PipelineConfig(
         dataset=args.dataset, method=args.method, k=args.k, seed=args.seed, scheme=args.scheme,
-        mode=args.mode, integrate=args.integrate, model=args.model,
+        mode=args.mode, sync_period=args.sync_period,
+        integrate=args.integrate, model=args.model,
         hidden_dim=args.hidden_dim, embed_dim=args.embed_dim,
         num_layers=args.num_layers, dropout=args.dropout,
         epochs=args.epochs, lr=args.lr,

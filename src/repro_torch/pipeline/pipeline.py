@@ -2,20 +2,27 @@
 
     dataset -> partition (any registered method, by spec string; through
     the artifact cache when ``cache_dir`` is set) -> partition metrics
-    -> per-partition assembly -> to device (one CSR per partition)
-    -> train: k GNN replicas trained locally   | embed: seeded or given
-       (no communication), pooled embeddings   |   parameters, pooled
+    -> per-partition assembly (+ the halo exchange plan for sync and stale)
+    -> to device (one CSR per partition)
+    -> train: k GNN replicas, in one of three  | embed: seeded or given
+       modes, pooled embeddings                |   parameters, pooled
     -> classifier trained on the pooled table  |   embeddings
     -> offline answer key (blocked classify) -> serving bundle
 
-:func:`run_training` is the paper's local mode; :func:`run_inference`
-runs the same stages with seeded (or handed-in) parameters and no
-training. Both time every stage on the host clock, each ending in a device
+:func:`run_training` trains in ``mode`` "local" (the paper's scheme, no
+communication), "sync" (the halo-exchange baseline: halo rows refreshed
+from their owners before every layer) or "stale" (the exchange every
+``sync_period`` epochs, cached halo rows in between); sync and stale run
+on the Repli assembly, whatever ``scheme`` says, and the report carries
+the reference's collective bytes of the step. :func:`run_inference` runs
+the same stages with seeded (or handed-in) parameters and no training.
+Both time every stage on the host clock, each ending in a device
 synchronize.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
@@ -30,6 +37,8 @@ from repro_torch.gnn.infer import (PartitionTensors, compute_embeddings,
                                    gather_partition_tensors,
                                    init_partition_models, pool_embeddings)
 from repro_torch.gnn.model import GNNConfig, init_mlp
+from repro_torch.gnn.halo import (exchange_collective_bytes, train_stale,
+                                  train_sync)
 from repro_torch.gnn.train import train_classifier, train_local
 
 from .artifacts import (ArtifactBundle, PartitionArtifactStore,
@@ -38,6 +47,10 @@ from .datasets import get_dataset
 
 __all__ = ["PipelineConfig", "PipelineResult", "PipelineReport",
            "run_training", "run_inference"]
+
+log = logging.getLogger("repro_torch.pipeline")
+
+HALO_MODES = ("sync", "stale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +61,11 @@ class PipelineConfig:
                                     # "lpa+f(alpha=0.1)"
     k: int = 8
     seed: int = 0
-    scheme: str = "repli"           # "inner" | "repli"
-    mode: str = "local"             # only "local" is ported
+    scheme: str = "repli"           # "inner" | "repli" (sync/stale force
+                                    # repli)
+    mode: str = "local"             # "local" | "sync" | "stale"
+    sync_period: int = 4            # stale mode: exchange halos every N
+                                    # epochs (1 = sync; 0 = never = local)
     integrate: str = "none"         # "none" | "model_avg" | "ensemble"
     model: str = "gcn"              # "gcn" | "sage"
     hidden_dim: int = 128
@@ -60,7 +76,8 @@ class PipelineConfig:
     lr: float = 5e-3
     classifier_epochs: int = 150    # <= 0 skips the classifier stage
     classifier_hidden: int = 256
-    low_memory: bool = False        # train one partition at a time
+    low_memory: bool = False        # local mode: train one partition at
+                                    # a time
     cache_dir: Optional[str] = None     # None disables the artifact cache
     serving_dir: Optional[str] = None   # export a serving bundle here
     dataset_kwargs: Mapping[str, Any] = dataclasses.field(
@@ -85,6 +102,8 @@ class PipelineResult:
     timings: Dict[str, float]
     accuracy: Dict[str, float] = dataclasses.field(default_factory=dict)
     losses: Optional[np.ndarray] = None   # [epochs, k], training runs
+    exchanges: Optional[np.ndarray] = None   # [epochs], sync and stale
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
     serving_path: Optional[str] = None
 
 
@@ -101,6 +120,8 @@ class PipelineReport:
     batch_cache_hit: bool
     artifact_paths: Dict[str, Optional[str]]
     shapes: Dict[str, int]          # k, n_pad, e_pad
+    collectives: Dict[str, int]     # the reference's collective bytes of
+                                    # the step (training runs)
     accuracy: Dict[str, float]      # train/val/test (empty if skipped)
     timings: Dict[str, float]
     partition_fingerprint: str
@@ -111,7 +132,7 @@ class PipelineReport:
            ) -> "PipelineReport":
         ds, batch, bundle = result.dataset, result.batch, result.bundle
         return cls(
-            config={**dataclasses.asdict(cfg),
+            config={**dataclasses.asdict(cfg), "scheme": _scheme(cfg),
                     "method": result.spec.canonical(),
                     "dataset_kwargs": dict(cfg.dataset_kwargs)},
             dataset=ds.name,
@@ -124,6 +145,7 @@ class PipelineReport:
                             "batch": bundle.batch_path},
             shapes={"k": batch.k, "n_pad": batch.n_pad,
                     "e_pad": batch.e_pad},
+            collectives=dict(result.collectives),
             accuracy=dict(result.accuracy),
             timings={k: round(v, 4) for k, v in result.timings.items()},
             partition_fingerprint=result.spec.fingerprint(),
@@ -136,6 +158,9 @@ class PipelineReport:
         c, p = self.config, self.partition
         hit = "HIT" if self.partition_cache_hit else "miss"
         bhit = "HIT" if self.batch_cache_hit else "miss"
+        mode = c["mode"]
+        if mode == "stale":
+            mode = f"stale(period={c['sync_period'] or '∞'})"
         lines = ["PipelineReport",
                  f"  dataset      {self.dataset} (n={self.num_nodes}, "
                  f"edges={self.num_edges})",
@@ -150,12 +175,23 @@ class PipelineReport:
                  f"  assembly     scheme={c['scheme']} "
                  f"n_pad={self.shapes['n_pad']} "
                  f"e_pad={self.shapes['e_pad']} [cache {bhit}]",
-                 f"  training     mode={c['mode']} model={c['model']} "
+                 f"  training     mode={mode} model={c['model']} "
                  f"layers={c['num_layers']} epochs={c['epochs']} "
                  f"device={self.device}"]
         if c["integrate"] != "none":
             lines.append(f"  integration  {c['integrate']} over "
                          f"k={c['k']} partition models (pre-assembly)")
+        if self.collectives:
+            col = self.collectives
+            lines.append(f"  collectives  {col['total']} bytes/step "
+                         f"(all-gather={col['all-gather']}, all-reduce="
+                         f"{col['all-reduce']})")
+            if c["mode"] == "stale":
+                lines.append(
+                    f"  stale comm   {col.get('per_epoch_avg', 0)} "
+                    f"bytes/epoch avg ({col.get('n_exchange_epochs', 0)}/"
+                    f"{c['epochs']} exchange epochs, between-exchange step="
+                    f"{col.get('stale_step_total', 0)} bytes)")
         if self.accuracy:
             lines.append(f"  accuracy     train={self.accuracy['train']:.3f}"
                          f" val={self.accuracy['val']:.3f} "
@@ -188,30 +224,40 @@ def _check(cfg: PipelineConfig) -> PartitionerSpec:
     spec string fails here, before any dataset or partition work)."""
     if cfg.k < 1:
         raise ValueError(f"k must be >= 1, got {cfg.k}")
-    if cfg.mode in ("sync", "stale"):
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} is not ported yet (ROADMAP.md, A.8: sync "
-            f"and stale modes); the port trains in local mode")
-    if cfg.mode != "local":
+    if cfg.mode not in ("local",) + HALO_MODES:
         raise ValueError(f"mode must be local|sync|stale, got {cfg.mode!r}")
+    if cfg.sync_period < 0:
+        raise ValueError(f"sync_period must be >= 0 (0 = never exchange), "
+                         f"got {cfg.sync_period}")
     if cfg.integrate not in INTEGRATION_KINDS:
         raise ValueError(f"integrate must be one of {INTEGRATION_KINDS}, "
                          f"got {cfg.integrate!r}")
     return PartitionerSpec.parse(cfg.method)
 
 
+def _scheme(cfg: PipelineConfig) -> str:
+    """The assembly a run uses: sync and stale need the halo replicas."""
+    return "repli" if cfg.mode in HALO_MODES else cfg.scheme
+
+
 def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
                  stage: _Stages, ds: Optional[NodeDataset]):
-    """Dataset, partition and assembly (load-or-compute), and the partition
-    report. Returns (ds, bundle, report, gnn config)."""
+    """Dataset, partition and assembly (load-or-compute; with the halo plan
+    for sync and stale), and the partition report. Returns (ds, bundle,
+    report, gnn config)."""
     if ds is None:
         ds = stage("dataset", lambda: get_dataset(cfg.dataset,
                                                   **dict(cfg.dataset_kwargs)))
+    scheme, with_halo = _scheme(cfg), cfg.mode in HALO_MODES
+    if scheme != cfg.scheme:
+        log.info("%s mode requires halo replicas: forcing scheme=repli "
+                 "(was %s)", cfg.mode, cfg.scheme)
     if cfg.cache_dir:
         bundle = PartitionArtifactStore(cfg.cache_dir).load_or_compute(
-            ds.graph, spec, cfg.k, cfg.seed, cfg.scheme)
+            ds.graph, spec, cfg.k, cfg.seed, scheme, with_halo=with_halo)
     else:
-        bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, cfg.scheme)
+        bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, scheme,
+                                with_halo=with_halo)
     stage.timings["partition"] = bundle.partition_seconds
     stage.timings["assemble"] = bundle.assemble_seconds
     report = stage("partition_eval", lambda: evaluate_partition(
@@ -240,12 +286,13 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
                  params: Optional[Dict[str, Any]] = None,
                  classifier: Optional[Dict[str, torch.Tensor]] = None
                  ) -> PipelineResult:
-    """The paper's pipeline in local mode: train the k GNN replicas, pool
+    """The paper's pipeline: train the k GNN replicas in ``cfg.mode``, pool
     their embeddings, train the classifier, and export the trained bundle.
 
     ``params``/``classifier`` are the initial parameters; they default to
     the seeded ones :func:`run_inference` uses. The offline answer key is
-    the trained classifier's blocked ``classify`` of the pooled table."""
+    the trained classifier's blocked ``classify`` of the pooled table.
+    ``low_memory`` applies to local mode only."""
     spec = _check(cfg)
     if cfg.serving_dir and cfg.classifier_epochs <= 0:
         raise ValueError("serving_dir requires the classifier stage "
@@ -254,8 +301,9 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
     stage = _Stages(device)
     ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
     batch = bundle.batch
+    low_memory = cfg.low_memory and cfg.mode == "local"
     tensors = None
-    if not cfg.low_memory:
+    if not low_memory:
         tensors = stage("to_device",
                         lambda: gather_partition_tensors(ds, batch, device))
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -265,10 +313,18 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
     if classifier is None:
         classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
                               ds.num_classes, device)
-    trained = stage("train", lambda: train_local(
-        ds, batch, gnn, epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
-        integrate=cfg.integrate, sequential=cfg.low_memory, device=device,
-        params=params, tensors=tensors))
+
+    def train():
+        common = dict(epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
+                      integrate=cfg.integrate, device=device, params=params,
+                      tensors=tensors)
+        if cfg.mode == "sync":
+            return train_sync(ds, batch, bundle.halo, gnn, **common)
+        if cfg.mode == "stale":
+            return train_stale(ds, batch, bundle.halo, gnn,
+                               sync_period=cfg.sync_period, **common)
+        return train_local(ds, batch, gnn, sequential=low_memory, **common)
+    trained = stage("train", train)
     stage.timings["train_epochs"] = trained.seconds["epochs"]
     stage.timings["train_embed"] = trained.seconds["embed"]
     accuracy: Dict[str, float] = {}
@@ -281,7 +337,11 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
         bundle=bundle, partition=report, tensors=tensors, gnn=gnn,
         params=trained.params, classifier=classifier,
         embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
-        timings={}, accuracy=accuracy, losses=trained.losses)
+        timings={}, accuracy=accuracy, losses=trained.losses,
+        exchanges=trained.exchanges,
+        collectives=exchange_collective_bytes(
+            gnn, bundle.halo, batch.k, cfg.mode, cfg.epochs,
+            cfg.sync_period))
     return _finish(cfg, stage, result)
 
 

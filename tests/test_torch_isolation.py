@@ -74,6 +74,8 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.core.spec", "repro_torch.core.metrics",
             "repro_torch.pipeline.artifacts",
             "repro_torch.tools.training_parity"} <= set(got["mods"])
+    assert {"repro_torch.gnn.halo",
+            "repro_torch.kernels.exchange"} <= set(got["mods"])
 
 
 @pytest.fixture

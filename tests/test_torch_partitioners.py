@@ -252,7 +252,7 @@ def test_proteins_like_is_byte_identical(kwargs):
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_cache_entries_hit_across_packages(graphs, tmp_path, writer, spec):
     """Either package's entry is a hit in the other; the reference's batch
-    bundle carries its halo arrays, which the port ignores."""
+    bundle carries its halo arrays, which the port loads."""
     g, rg = graphs["arxiv2000"]
     mine = artifacts.PartitionArtifactStore(str(tmp_path))
     theirs = ref_artifacts.PartitionArtifactStore(str(tmp_path))
@@ -268,6 +268,7 @@ def test_cache_entries_hit_across_packages(graphs, tmp_path, writer, spec):
     assert (first.labels_path, first.batch_path) == \
         (second.labels_path, second.batch_path)
     assert first.fingerprint == second.fingerprint
+    assert (second.halo is not None) == (writer == "reference")
     assert np.array_equal(first.labels, second.labels)
     for field in artifacts._BATCH_FIELDS + ("n_pad", "e_pad"):
         a = np.asarray(getattr(first.batch, field))

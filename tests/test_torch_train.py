@@ -368,10 +368,3 @@ def test_run_training_exports_the_trained_bundle(tmp_path):
     np.testing.assert_array_equal(store.predictions, result.predictions)
     torch.testing.assert_close(store.classifier["w1"],
                                result.classifier["w1"])
-
-
-@pytest.mark.parametrize("mode", ["sync", "stale"])
-def test_sync_and_stale_modes_are_not_ported_yet(mode):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        run_training(PipelineConfig(dataset="karate", k=2, mode=mode),
-                     device="cpu")
