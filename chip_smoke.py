@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN serving, GCN training, the paper's
-partitioner comparison, Proteins training, LM serving and the sync and
-stale training modes on one NVIDIA GPU.
+partitioner comparison, Proteins training, LM serving, the sync and stale
+training modes and the traced, checkpointed and profiled main path on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -117,7 +118,23 @@ Phases, each fatal on failure:
    chance and the seeded run's; two sync steps from one state bitwise
    equal; the exchange's forward equal to plain indexing and its backward
    within 3e-5 of autograd's (against the sum of absolute terms), timed
-   beside its bound, its plain version and ``index_add_``.
+   beside its bound, its plain version and ``index_add_``;
+15. the traced main path: phase 5's configuration (its partition from the
+   cache) run again with ``repro_torch.obs`` tracing on and a checkpoint
+   directory, then 2 epochs at the same width under ``torch.profiler``,
+   then ``repro_torch.tools.obs_overhead``. Gates: the exported trace
+   passes ``validate_trace`` with the dataset, partition, train and
+   classifier stages; 60 ``train.epoch`` spans and ``train.epochs`` 60;
+   every stage timing equal to its span's duration; CUDA peak memory above
+   0; tracing changes no output (the pooled table and the losses bitwise
+   equal to phase 5's untraced run, the accuracy equal); the checkpoint
+   (``step_00000060``, one ``arr_*.npy`` per leaf) restored into freshly
+   seeded parameters on the card gives the table bitwise; the profile
+   names kernel B's product and kernel A's gather and fix-up; the
+   projected disabled-mode overhead is under 1% of the untraced wall.
+   Prints ms per epoch untraced and traced, the sum of the epoch spans,
+   the 10 hottest spans, the checkpoint's bytes and save and restore
+   seconds, and the projected overhead.
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
@@ -1443,6 +1460,182 @@ def frontier_on_card(dev, ds, cache_dir, local, seeded_acc):
     return rows, kernel
 
 
+# timing keys of a training run that no span times (the partitioner's and
+# the assembly's own seconds, the epoch loop's and the embedding pass's);
+# every other key is its stage span's duration when the run is traced
+UNSPANNED = ("partition", "assemble", "train_epochs", "train_embed")
+SPAN_OF_KEY = {"partition_stage": "pipeline.partition",
+               "export": "pipeline.serving_export"}
+PROFILE_KERNELS = ("fused_gcn_product",        # kernel B's product
+                   "csr_aggregate_gather",     # kernel A (and B's gather)
+                   "csr_aggregate_fixup")
+
+
+def traced_main_path(dev, ds, cache_dir, phase5):
+    """Phase 15: the training main path of phase 5 (its partition from the
+    cache) with ``repro_torch.obs`` tracing on and a checkpoint directory,
+    then 2 epochs at the same width under ``torch.profiler``, then the
+    disabled-mode overhead gate (``repro_torch.tools.obs_overhead``).
+    ``phase5``: phase 5's untraced table, losses, accuracy and ms/epoch.
+    Gates: the trace valid with the pipeline's stages, 60 ``train.epoch``
+    spans and ``train.epochs`` 60, every stage timing equal to its span's
+    duration, CUDA peak memory > 0, tracing changing no output (table and
+    losses bitwise, accuracy equal), the checkpoint's leaves restored into
+    freshly seeded parameters giving the table bitwise, kernels A and B
+    named in the profile, the projected disabled overhead under 1%."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.gnn.infer import (compute_embeddings,
+                                       init_partition_models,
+                                       pool_embeddings)
+    from repro_torch.obs.summarize import (format_summary, load_trace,
+                                           validate_trace)
+    from repro_torch.pipeline.pipeline import PipelineConfig, run_training
+    from repro_torch.tools import obs_overhead
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    base = dict(dataset="arxiv-like", k=8, scheme="repli",
+                cache_dir=cache_dir, dataset_kwargs={"scale": ARXIV_SCALE})
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-obs-",
+                                     dir=ROOT) as work:
+        cfg = PipelineConfig(checkpoint_dir=os.path.join(work, "ckpt"),
+                             **base)
+        obs.reset()
+        obs.enable()
+        try:
+            traced = run_training(cfg, device=dev, ds=ds)
+        finally:
+            obs.disable()
+        t = traced.timings
+        doc = load_trace(obs.export_trace(os.path.join(work, "trace.json")))
+        problems = validate_trace(doc, require=["dataset", "partition",
+                                                "train", "classifier"])
+        check(problems == [], f"the trace is not valid: {problems}")
+        spans = obs.tracer().spans()
+        by_name = {}
+        for sp in spans:
+            by_name.setdefault(sp.name, []).append(sp.duration)
+        n_epochs = len(by_name.get("train.epoch", []))
+        counted = obs.counter("train.epochs").value
+        check(n_epochs == cfg.epochs and counted == cfg.epochs,
+              f"{n_epochs} train.epoch spans and train.epochs {counted}, "
+              f"expected {cfg.epochs}")
+        off = {}
+        for key, value in t.items():
+            if key in UNSPANNED:
+                continue
+            durations = by_name.get(SPAN_OF_KEY.get(key, f"pipeline.{key}"))
+            if durations is None or len(durations) != 1 \
+                    or durations[0] != value:
+                off[key] = (value, durations)
+        check(not off, f"timings that are not their span's duration: {off}")
+        peak = obs.gauge("cuda.device.peak_bytes_in_use").value
+        check(peak is not None and peak > 0,
+              f"cuda.device.peak_bytes_in_use is {peak}")
+        same_table = torch.equal(traced.embeddings.cpu(), phase5["table"])
+        same_losses = bool(np.array_equal(traced.losses, phase5["losses"]))
+        check(same_table and same_losses
+              and traced.accuracy == phase5["accuracy"],
+              f"tracing changed the output: table equal {same_table}, "
+              f"losses equal {same_losses}, accuracy {traced.accuracy} "
+              f"against phase 5's {phase5['accuracy']}")
+        epoch_sum = sum(by_name["train.epoch"])
+        out.update(
+            untraced_ms_per_epoch=phase5["ms_per_epoch"],
+            traced_ms_per_epoch=1e3 * t["train_epochs"] / cfg.epochs,
+            epoch_spans_sum_s=epoch_sum, spans=len(spans),
+            peak_device_bytes=peak,
+            trace_bytes=os.path.getsize(os.path.join(work, "trace.json")))
+        print(f"traced main path: untraced {out['untraced_ms_per_epoch']:.2f}"
+              f" ms/epoch (phase 5), traced "
+              f"{out['traced_ms_per_epoch']:.2f} ms/epoch, {n_epochs} "
+              f"train.epoch spans summing to {epoch_sum:.4f} s (loop "
+              f"{t['train_epochs']:.4f} s), {len(spans)} spans, trace "
+              f"{out['trace_bytes']} bytes; output bitwise equal to phase 5",
+              flush=True)
+        print("traced main path, 10 hottest spans:")
+        print(format_summary(doc, top=10))
+
+        # the checkpoint round trip, on the card
+        step_dir = traced.checkpoint_path
+        files = os.listdir(step_dir)
+        arrs = [f for f in files if f.startswith("arr_")]
+        n_leaves = len(tree_leaves(traced.params))
+        check(os.path.basename(step_dir) == f"step_{cfg.epochs:08d}"
+              and len(arrs) == n_leaves and "manifest.msgpack" in files,
+              f"checkpoint {step_dir} holds {sorted(files)}, expected "
+              f"{n_leaves} leaves")
+        fresh = init_partition_models(traced.gnn, ds.num_classes, cfg.k,
+                                      torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(cfg.checkpoint_dir, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        with torch.no_grad():
+            table = pool_embeddings(
+                compute_embeddings(restored, traced.gnn, traced.tensors),
+                traced.tensors, ds.graph.n)
+        check(torch.equal(table, traced.embeddings),
+              "the table from the restored checkpoint differs from the run's")
+        out.update(checkpoint_bytes=sum(os.path.getsize(
+                       os.path.join(step_dir, f)) for f in files),
+                   checkpoint_leaves=n_leaves,
+                   checkpoint_save_s=t["checkpoint"],
+                   checkpoint_restore_s=restore_s)
+        print(f"checkpoint: {n_leaves} leaves, {out['checkpoint_bytes']} "
+              f"bytes, save {t['checkpoint']:.4f} s, restore "
+              f"{restore_s:.4f} s; restored table bitwise equal", flush=True)
+        del traced, restored, table, fresh
+        torch.cuda.empty_cache()
+
+        # 2 epochs under torch.profiler: kernels A and B in its trace
+        obs.reset()
+        pcfg = PipelineConfig(epochs=2, classifier_epochs=0,
+                              torch_profile_dir=os.path.join(work, "prof"),
+                              **base)
+        profiled = run_training(pcfg, device=dev, ds=ds)
+        path = profiled.profile_path
+        check(path is not None and os.path.exists(path),
+              f"no torch.profiler trace was written ({path}; "
+              f"torch.profiler.failed "
+              f"{obs.counter('torch.profiler.failed').value})")
+        with open(path) as f:
+            pdoc = json.load(f)
+        kernels = [e["name"] for e in pdoc.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        found = {n: sum(n in k for k in kernels) for n in PROFILE_KERNELS}
+        out.update(profile_bytes=os.path.getsize(path),
+                   profile_kernel_events=len(kernels),
+                   profile_kernels=found,
+                   profile_train_s=profiled.timings["train"])
+        print(f"torch.profiler, 2 epochs: {len(kernels)} kernel events, "
+              f"{out['profile_bytes']} bytes, train stage "
+              f"{profiled.timings['train']:.3f} s; kernel events by name "
+              f"{json.dumps(found)}", flush=True)
+        check(all(found.values()),
+              f"kernels missing from the profile: {found}")
+        del profiled
+
+    m = obs_overhead.measure(dev)
+    out["obs_overhead"] = m
+    print(f"obs overhead (karate pipeline on the card): "
+          f"{m['span_ns']:.0f} ns a disabled span, {m['metric_op_ns']:.0f} "
+          f"ns a metric op; {m['spans']} spans, {m['traced_metric_ops']} "
+          f"metric ops traced; untraced wall {m['wall_s']:.4f} s; projected "
+          f"disabled overhead {m['projected_ms']:.4f} ms = "
+          f"{100 * m['share']:.5f}%", flush=True)
+    check(m["share"] < obs_overhead.OVERHEAD_BUDGET,
+          f"projected disabled-mode obs overhead {100 * m['share']:.4f}% "
+          f"is over 1%")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"traced main path phase: {out['phase_s']:.1f} s wall")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1585,6 +1778,10 @@ def main():
               and acc["test"] > seeded_acc,
               f"trained test accuracy {acc['test']} does not beat chance "
               f"and the seeded run ({seeded_acc})")
+        # phase 15 holds its traced run to this untraced one
+        phase5 = {"table": trained.embeddings.cpu(),
+                  "losses": trained.losses.copy(), "accuracy": dict(acc),
+                  "ms_per_epoch": 1e3 * tt["train_epochs"] / tcfg.epochs}
         # local mode's row of phase 14's frontier
         local_row = {"exchange_epochs": 0,
                      "collectives_total": trained.collectives["total"],
@@ -1835,6 +2032,10 @@ def main():
     frontier, exchange_kernel = frontier_on_card(dev, main_ds,
                                                  main_cache.name, local_row,
                                                  seeded_acc)
+
+    # -- 15. the traced main path, its checkpoint and profile -------------
+    torch.cuda.empty_cache()
+    traced = traced_main_path(dev, main_ds, main_cache.name, phase5)
     main_cache.cleanup()
     kernels.append(exchange_kernel)
     print("summary: " + json.dumps({
@@ -1848,7 +2049,8 @@ def main():
         "frontier": {m: {"test_acc": r["accuracy"]["test"],
                          "bytes_per_epoch": r["per_epoch_avg"],
                          "ms_per_epoch": r["ms_per_epoch"]}
-                     for m, r in frontier.items()}}))
+                     for m, r in frontier.items()},
+        "phase15": traced}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = ["QuotientEdges", "quotient_edges", "connected_components",
            "split_components", "CommunityState"]
 
@@ -53,6 +55,13 @@ def quotient_edges(g, labels: np.ndarray) -> QuotientEdges:
     sw = g.self_weight
     if sw.shape[0] != g.n:     # Graph's zero-length default
         sw = np.zeros(g.n)
+    obs.counter("engine.quotient_calls").inc()
+    with obs.span("engine.quotient", k=k, n=int(g.n)):
+        return _quotient_edges(g, labels, k, sw)
+
+
+def _quotient_edges(g, labels: np.ndarray, k: int,
+                    sw: np.ndarray) -> QuotientEdges:
     src, dst, w = g.arcs()
     ls, ld = labels[src], labels[dst]
     inter = ls != ld
@@ -121,9 +130,10 @@ def split_components(g, labels: np.ndarray) -> np.ndarray:
     """Relabel so every connected component of every community is its own
     community (components of the same-label arc subgraph)."""
     labels = np.asarray(labels, dtype=np.int64)
-    src, dst, _ = g.arcs()
-    same = labels[src] == labels[dst]
-    return connected_components(g.n, src[same], dst[same])
+    with obs.span("engine.split_components", n=int(g.n)):
+        src, dst, _ = g.arcs()
+        same = labels[src] == labels[dst]
+        return connected_components(g.n, src[same], dst[same])
 
 
 class CommunityState:

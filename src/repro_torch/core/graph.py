@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 from . import engine
 
 
@@ -112,6 +114,8 @@ class Graph:
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(asrc, adst, aw): the CSR slices of all given nodes concatenated,
         in the given node order, without a Python loop."""
+        obs.counter("graphstore.gather_calls").inc()
+        obs.counter("graphstore.gather_rows").inc(int(nodes.size))
         counts = self.indptr[nodes + 1] - self.indptr[nodes]
         total = int(counts.sum())
         stops = np.cumsum(counts)

@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 from .engine import split_components
 from .graph import Graph
 
@@ -170,6 +172,8 @@ def _local_move(g: Graph, labels: np.ndarray, comm_size: np.ndarray,
         comm_deg += np.bincount(t, weights=dd, minlength=S)
         return nn, t, True
 
+    sweeps_ctr = obs.counter("partition.sweeps")
+    moves_ctr = obs.counter("partition.moves")
     for _ in range(max_sweeps):
         nodes = np.flatnonzero(active)
         if nodes.size == 0:
@@ -177,22 +181,28 @@ def _local_move(g: Graph, labels: np.ndarray, comm_size: np.ndarray,
         active[nodes] = False
         slices = (_frontier_batches(g, nodes, _BATCH_ARCS)
                   if sliced else [nodes])
-        moved_nodes, moved_to = [], []
-        any_candidates = False
-        for sl in slices:
-            s_nn, s_t, had = sweep_slice(sl)
-            any_candidates |= had
-            if s_nn.size:
-                moved_nodes.append(s_nn)
-                moved_to.append(s_t)
-        if not any_candidates:
-            break
-        if not moved_nodes:
-            continue
-        nn = np.concatenate(moved_nodes) if len(moved_nodes) > 1 \
-            else moved_nodes[0]
-        t = np.concatenate(moved_to) if len(moved_to) > 1 else moved_to[0]
-        moved_any = True
+        sweeps_ctr.inc()
+        with obs.span("engine.sweep", frontier=int(nodes.size),
+                      slices=len(slices)) as sweep_sp:
+            moved_nodes, moved_to = [], []
+            any_candidates = False
+            for sl in slices:
+                s_nn, s_t, had = sweep_slice(sl)
+                any_candidates |= had
+                if s_nn.size:
+                    moved_nodes.append(s_nn)
+                    moved_to.append(s_t)
+            if not any_candidates:
+                break
+            if not moved_nodes:
+                continue
+            nn = np.concatenate(moved_nodes) if len(moved_nodes) > 1 \
+                else moved_nodes[0]
+            t = np.concatenate(moved_to) if len(moved_to) > 1 \
+                else moved_to[0]
+            moved_any = True
+            moves_ctr.inc(int(nn.size))
+            sweep_sp.set(moved=int(nn.size))
         if nn.size * _MOVE_CUTOFF < n:
             break
         # next frontier: neighbours of moved nodes that did not end up in
@@ -247,7 +257,7 @@ def leiden(g: Graph, max_community_size: Optional[float] = None,
     init = np.arange(g.n, dtype=np.int64)
     final_labels = np.arange(g.n, dtype=np.int64)
 
-    for _ in range(max_levels):
+    for lvl in range(max_levels):
         n = level_graph.n
         labels = init.copy()
         num_init = int(labels.max()) + 1
@@ -255,20 +265,25 @@ def leiden(g: Graph, max_community_size: Optional[float] = None,
                                 minlength=num_init)
         comm_deg = np.bincount(labels, weights=level_graph.degrees(),
                                minlength=num_init)
-        moved = _local_move(level_graph, labels, comm_size, comm_deg,
-                            cap, two_m, gamma, rng)
+        with obs.span("partition.local_move", level=lvl, n=int(n),
+                      arcs=int(level_graph.num_arcs)):
+            moved = _local_move(level_graph, labels, comm_size, comm_deg,
+                                cap, two_m, gamma, rng)
         _, labels = np.unique(labels, return_inverse=True)
         num_comms = int(labels.max()) + 1
         final_labels = labels[node_to_level]
         if not moved or num_comms == n:
             break
-        refined = _refine(level_graph, labels, cap, two_m, gamma, rng)
+        with obs.span("partition.refine", level=lvl, n=int(n)):
+            refined = _refine(level_graph, labels, cap, two_m, gamma, rng)
         num_refined = int(refined.max()) + 1
         if num_refined == n:
             # aggregation would be the identity: the next level would
             # repeat this one
             break
-        agg = level_graph.aggregate(refined)
+        with obs.span("partition.aggregate", level=lvl, n=int(n),
+                      communities=int(num_refined)):
+            agg = level_graph.aggregate(refined)
         # the next level starts from the phase-1 partition, per Leiden
         ref_to_comm = np.zeros(num_refined, dtype=np.int64)
         ref_to_comm[refined] = labels

@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import HaloExchangeSpec, NodeDataset, PartitionBatch
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels import exchange as _exchange
@@ -47,7 +48,7 @@ from .layers import gcn_layer, sage_layer
 from .model import (GNNConfig, dropout, head_logits, sigmoid_bce,
                     softmax_xent)
 from .train import (LocalTraining, apply_integration, dropout_generators,
-                    stacked_train_step)
+                    finish_epoch_span, stacked_train_step)
 
 __all__ = ["REFRESH_MODES", "make_halo_forward", "make_sync_forward",
            "make_sync_train_step", "train_sync", "stale_exchange_epochs",
@@ -208,14 +209,16 @@ def make_stale_train_steps(cfg: GNNConfig, plan: _exchange.ExchangePlan,
     return {"exchange": step_ex, "stale": step_st, "frozen": step_fz}
 
 
-def _train_halo(ds: NodeDataset, batch: PartitionBatch,
+def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                 halo: HaloExchangeSpec, cfg: GNNConfig, epochs: int,
                 lr: float, seed: int, schedule: Sequence[int],
                 integrate: str, device: DeviceLike, params: Optional[Params],
                 tensors: Optional[PartitionTensors]) -> LocalTraining:
-    """The epoch loop of both modes: exchange steps on the epochs of
-    ``schedule`` (every epoch: sync), local steps before the first, cached
-    steps after it."""
+    """The epoch loop of both modes (``mode`` "sync" or "stale"): exchange
+    steps on the epochs of ``schedule`` (every epoch: sync), local steps
+    before the first, cached steps after it. Traced epochs are
+    ``train.epoch`` spans (stale's with the step's ``kind``); stale counts
+    its exchange epochs in ``train.stale_exchanges``."""
     device = resolve_device(device)
     k = batch.k
     if halo.send_rows.shape[0] != k:
@@ -235,19 +238,38 @@ def _train_halo(ds: NodeDataset, batch: PartitionBatch,
     exchanges = np.zeros(epochs, dtype=np.int64)
     on = set(schedule)
     caches = None
+
+    def run_epoch(kind):
+        nonlocal params, opt, caches
+        if kind == "exchange":
+            params, opt, loss, caches = steps["exchange"](params, opt,
+                                                          tensors, gens)
+        elif kind == "frozen":
+            params, opt, loss = steps["frozen"](params, opt, tensors, gens)
+        else:
+            params, opt, loss = steps["stale"](params, opt, tensors, gens,
+                                               caches)
+        return loss
+
+    epochs_ctr = obs.counter("train.epochs")
+    exchanges_ctr = obs.counter("train.stale_exchanges")
+    traced = obs.enabled()
     synchronize(device)
     t0 = time.perf_counter()
     for e in range(epochs):
         before = _exchange.calls
-        if e in on:
-            params, opt, losses[e], caches = steps["exchange"](
-                params, opt, tensors, gens)
-        elif caches is None:
-            params, opt, losses[e] = steps["frozen"](params, opt, tensors,
-                                                     gens)
+        kind = ("exchange" if e in on
+                else "frozen" if caches is None else "stale")
+        if traced:
+            attrs = {"kind": kind} if mode == "stale" else {}
+            with obs.span("train.epoch", epoch=e, mode=mode, **attrs) as sp:
+                losses[e] = run_epoch(kind)
+                finish_epoch_span(sp, losses[e])
         else:
-            params, opt, losses[e] = steps["stale"](params, opt, tensors,
-                                                    gens, caches)
+            losses[e] = run_epoch(kind)
+        if mode == "stale" and kind == "exchange":
+            exchanges_ctr.inc()
+        epochs_ctr.inc()
         exchanges[e] = _exchange.calls - before
     del caches
     synchronize(device)
@@ -280,7 +302,7 @@ def train_sync(ds: NodeDataset, batch: PartitionBatch,
                tensors: Optional[PartitionTensors] = None) -> LocalTraining:
     """The sync baseline: the halo rows are exchanged before every layer of
     every step. ``params``/``tensors`` default as in ``train_local``."""
-    return _train_halo(ds, batch, halo, cfg, epochs, lr, seed,
+    return _train_halo("sync", ds, batch, halo, cfg, epochs, lr, seed,
                        range(epochs), integrate, device, params, tensors)
 
 
@@ -295,7 +317,7 @@ def train_stale(ds: NodeDataset, batch: PartitionBatch,
     only; the epochs between train against the halo rows cached at the
     last exchange, and those before the first (``sync_period`` 0 or None:
     every epoch) are local steps."""
-    return _train_halo(ds, batch, halo, cfg, epochs, lr, seed,
+    return _train_halo("stale", ds, batch, halo, cfg, epochs, lr, seed,
                        stale_exchange_epochs(epochs, sync_period),
                        integrate, device, params, tensors)
 

@@ -18,6 +18,12 @@ loops: partition p runs all its epochs before p+1 starts.
 
 Dropout masks come from one generator per partition, seeded from
 ``(seed, p)``, so the two loop orders draw the same masks.
+
+Every epoch counts ``train.epochs``. When :mod:`repro_torch.obs` traces,
+each epoch runs in a ``train.epoch`` span (the sequential path: each
+partition in a ``train.partition`` span) that ends in one ``.item()`` of
+the mean loss, so the span covers the card's work; the untraced loop never
+waits on the card.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import (NodeDataset, PartitionBatch,
                               average_partition_params)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
@@ -42,7 +49,16 @@ from .model import (GNNConfig, gnn_forward, head_logits, init_mlp,
 
 __all__ = ["LocalTraining", "dropout_generators", "partition_loss",
            "local_train_step", "stacked_train_step", "train_local", "apply_integration",
-           "train_classifier", "mean_rocauc"]
+           "train_classifier", "mean_rocauc", "finish_epoch_span"]
+
+
+def finish_epoch_span(sp, loss: torch.Tensor) -> None:
+    """Close a traced epoch: one ``.item()`` of the mean loss waits for the
+    card, so the span covers its work; the value goes on the span and the
+    ``train.loss`` gauge. Called under ``obs.enabled()`` only."""
+    val = loss.mean().item()
+    sp.set(loss=round(val, 6))
+    obs.gauge("train.loss").set(val)
 
 
 class LocalTraining(NamedTuple):
@@ -143,6 +159,8 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
                                        device)
     gens = dropout_generators(seed, k, device)
     losses = torch.empty((epochs, k), dtype=torch.float32, device=device)
+    epochs_ctr = obs.counter("train.epochs")
+    traced = obs.enabled()
     synchronize(device)
     t0 = time.perf_counter()
     if sequential:
@@ -153,9 +171,15 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
             t_p = one(p)
             params_p = partition_params(params, p)
             opt = adamw_init(params_p)
-            for e in range(epochs):
-                params_p, opt, losses[e, p] = local_train_step(
-                    params_p, opt, t_p, 0, cfg, ds.multilabel, lr, gens[p])
+            with obs.span("train.partition", partition=p, epochs=epochs,
+                          mode="local_sequential") as psp:
+                for e in range(epochs):
+                    params_p, opt, losses[e, p] = local_train_step(
+                        params_p, opt, t_p, 0, cfg, ds.multilabel, lr,
+                        gens[p])
+                    epochs_ctr.inc()
+                if traced and epochs:
+                    finish_epoch_span(psp, losses[epochs - 1, p])
             trained.append(params_p)
             del t_p
         params = tree_map(lambda *xs: torch.stack(xs), *trained)
@@ -173,8 +197,15 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
             tensors = gather_partition_tensors(ds, batch, device)
         opt = adamw_init(params, stacked=True)
         for e in range(epochs):
-            params, opt, losses[e] = stacked_train_step(
-                params, opt, tensors, cfg, ds.multilabel, lr, gens)
+            if traced:
+                with obs.span("train.epoch", epoch=e, mode="local") as sp:
+                    params, opt, losses[e] = stacked_train_step(
+                        params, opt, tensors, cfg, ds.multilabel, lr, gens)
+                    finish_epoch_span(sp, losses[e])
+            else:
+                params, opt, losses[e] = stacked_train_step(
+                    params, opt, tensors, cfg, ds.multilabel, lr, gens)
+            epochs_ctr.inc()
 
         def emb_fn(ps):
             return compute_embeddings(ps, cfg, tensors)

@@ -21,8 +21,13 @@ artifact cache there, or computes and stores them; the entries are the
 reference package's, and either package hits the other's. Unlike the
 reference CLI, which caches under the home directory by default, the port
 caches only where it is told to (``--no-cache`` turns a given
-``--cache-dir`` off). The flags are the reference CLI's that the ported
-modes read; ``--device`` defaults to ``cuda``.
+``--cache-dir`` off). ``--trace PATH`` traces the run and writes the
+reference's Chrome trace document (``python -m repro_torch.obs summarize
+PATH``, or the reference's ``python -m repro.obs``); ``--torch-profile
+DIR`` runs ``torch.profiler`` over the training stage (the reference's
+``--jax-profile``); ``--checkpoint-dir DIR`` saves the trained parameters
+in the reference's checkpoint layout. The flags are the reference CLI's
+that the ported modes read; ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import sys
 from typing import List, Optional
 
 
@@ -83,12 +89,22 @@ def build_parser() -> argparse.ArgumentParser:
                           "no cache)")
     run.add_argument("--no-cache", action="store_true",
                      help="disable the partition artifact cache")
+    run.add_argument("--checkpoint-dir", default=None,
+                     help="save trained per-partition params here")
     run.add_argument("--serving-dir", default=None,
                      help="export a serving bundle here (requires "
                           "--classifier-epochs > 0)")
     run.add_argument("--low-memory", action="store_true",
                      help="train partitions one at a time (same math, one "
                           "partition's tensors on the device at a time)")
+    run.add_argument("--trace", default=None, metavar="PATH",
+                     help="enable repro_torch.obs tracing and export a "
+                          "Chrome trace-event JSON here after the run (open "
+                          "in Perfetto; aggregate with 'python -m "
+                          "repro_torch.obs summarize PATH')")
+    run.add_argument("--torch-profile", default=None, metavar="DIR",
+                     help="run torch.profiler around the training stage, "
+                          "writing its Chrome trace to DIR")
     run.add_argument("--json", action="store_true",
                      help="print the report as JSON instead of the summary")
 
@@ -172,10 +188,14 @@ def _cmd_partitioners(args: argparse.Namespace) -> int:
 
 
 def _cmd_run(args: argparse.Namespace) -> int:
+    from repro_torch import obs
+
     from .pipeline import PipelineConfig, PipelineReport, run_training
 
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
+    if args.trace:
+        obs.enable()
     dataset_kwargs = {}
     if args.nodes is not None:
         dataset_kwargs["n"] = args.nodes
@@ -191,8 +211,19 @@ def _cmd_run(args: argparse.Namespace) -> int:
         classifier_epochs=args.classifier_epochs,
         low_memory=args.low_memory, serving_dir=args.serving_dir,
         cache_dir=None if args.no_cache else args.cache_dir,
+        checkpoint_dir=args.checkpoint_dir,
+        torch_profile_dir=args.torch_profile,
         dataset_kwargs=dataset_kwargs)
-    report = PipelineReport.of(cfg, run_training(cfg, device=args.device))
+    result = run_training(cfg, device=args.device)
+    report = PipelineReport.of(cfg, result)
+    if args.trace:
+        path = obs.export_trace(args.trace)
+        print(f"trace written: {path} ({obs.tracer().event_count()} spans) "
+              f"- summarize with 'python -m repro_torch.obs summarize "
+              f"{path}'", file=sys.stderr)
+    if args.torch_profile:
+        print(f"torch.profiler trace: {result.profile_path}",
+              file=sys.stderr)
     if args.json:
         print(json.dumps(report.as_dict(), indent=2))
     else:

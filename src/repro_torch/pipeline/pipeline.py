@@ -16,19 +16,31 @@ from their owners before every layer) or "stale" (the exchange every
 on the Repli assembly, whatever ``scheme`` says, and the report carries
 the reference's collective bytes of the step. :func:`run_inference` runs
 the same stages with seeded (or handed-in) parameters and no training.
+
 Both time every stage on the host clock, each ending in a device
-synchronize.
+synchronize, and run it inside a :mod:`repro_torch.obs` span under the
+reference's names (``pipeline.total``, ``pipeline.dataset``,
+``pipeline.partition``, ``pipeline.partition_eval``, ``pipeline.train``,
+``pipeline.classifier``, ``pipeline.serving_export``; the port's other
+stages as ``pipeline.<key>``). When tracing is on, each timing is its
+span's duration; off, a ``perf_counter`` pair over the same window.
+Memory is sampled after every stage. ``checkpoint_dir`` saves the trained
+parameters at step ``epochs`` in the reference's checkpoint layout, and
+``torch_profile_dir`` runs ``torch.profiler`` over the train stage.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core import (INTEGRATION_KINDS, NodeDataset,
                               PartitionBatch, PartitionerSpec,
                               evaluate_partition)
@@ -79,7 +91,10 @@ class PipelineConfig:
     low_memory: bool = False        # local mode: train one partition at
                                     # a time
     cache_dir: Optional[str] = None     # None disables the artifact cache
+    checkpoint_dir: Optional[str] = None    # save the trained parameters
     serving_dir: Optional[str] = None   # export a serving bundle here
+    torch_profile_dir: Optional[str] = None     # torch.profiler over the
+                                                # train stage, written here
     dataset_kwargs: Mapping[str, Any] = dataclasses.field(
         default_factory=dict)
 
@@ -105,6 +120,8 @@ class PipelineResult:
     exchanges: Optional[np.ndarray] = None   # [epochs], sync and stale
     collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
     serving_path: Optional[str] = None
+    checkpoint_path: Optional[str] = None
+    profile_path: Optional[str] = None    # the torch.profiler trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +143,7 @@ class PipelineReport:
     timings: Dict[str, float]
     partition_fingerprint: str
     serving_path: Optional[str] = None
+    checkpoint_path: Optional[str] = None
 
     @classmethod
     def of(cls, cfg: PipelineConfig, result: PipelineResult
@@ -149,7 +167,8 @@ class PipelineReport:
             accuracy=dict(result.accuracy),
             timings={k: round(v, 4) for k, v in result.timings.items()},
             partition_fingerprint=result.spec.fingerprint(),
-            serving_path=result.serving_path)
+            serving_path=result.serving_path,
+            checkpoint_path=result.checkpoint_path)
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -196,6 +215,8 @@ class PipelineReport:
             lines.append(f"  accuracy     train={self.accuracy['train']:.3f}"
                          f" val={self.accuracy['val']:.3f} "
                          f"test={self.accuracy['test']:.3f}")
+        if self.checkpoint_path:
+            lines.append(f"  checkpoint   {self.checkpoint_path}")
         if self.serving_path:
             lines.append(f"  serving      {self.serving_path}")
         lines.append("  timings      " + " ".join(
@@ -203,20 +224,41 @@ class PipelineReport:
         return "\n".join(lines)
 
 
+# timing key -> span name, where the reference's name is not
+# ``pipeline.<key>``
+_SPAN_NAMES = {"partition_stage": "pipeline.partition",
+               "export": "pipeline.serving_export"}
+
+
 class _Stages:
     """Times each stage into ``timings`` (host clock, ending in a device
-    synchronize)."""
+    synchronize) inside its ``pipeline.*`` span; the counterpart of the
+    reference's ``_stage_span``."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.timings: Dict[str, float] = {}
 
-    def __call__(self, name: str, fn: Callable[[], Any]) -> Any:
-        t0 = time.perf_counter()
-        out = fn()
-        synchronize(self.device)
-        self.timings[name] = time.perf_counter() - t0
-        return out
+    @contextlib.contextmanager
+    def span(self, key: str, **attrs: Any) -> Iterator[Any]:
+        """Time the block into ``timings[key]``: traced, exactly the
+        span's duration; untraced, a ``perf_counter`` pair."""
+        name = _SPAN_NAMES.get(key, f"pipeline.{key}")
+        if obs.enabled():
+            with obs.span(name, **attrs) as sp:
+                yield sp
+                synchronize(self.device)
+            self.timings[key] = sp.duration
+        else:
+            t0 = time.perf_counter()
+            yield obs.span(name)     # the shared no-op span
+            synchronize(self.device)
+            self.timings[key] = time.perf_counter() - t0
+        obs.sample_memory_now()
+
+    def __call__(self, key: str, fn: Callable[[], Any], **attrs: Any) -> Any:
+        with self.span(key, **attrs):
+            return fn()
 
 
 def _check(cfg: PipelineConfig) -> PartitionerSpec:
@@ -245,23 +287,25 @@ def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
     """Dataset, partition and assembly (load-or-compute; with the halo plan
     for sync and stale), and the partition report. Returns (ds, bundle,
     report, gnn config)."""
-    if ds is None:
-        ds = stage("dataset", lambda: get_dataset(cfg.dataset,
-                                                  **dict(cfg.dataset_kwargs)))
+    ds = stage("dataset", lambda: ds if ds is not None else get_dataset(
+        cfg.dataset, **dict(cfg.dataset_kwargs)), dataset=cfg.dataset)
     scheme, with_halo = _scheme(cfg), cfg.mode in HALO_MODES
     if scheme != cfg.scheme:
         log.info("%s mode requires halo replicas: forcing scheme=repli "
                  "(was %s)", cfg.mode, cfg.scheme)
-    if cfg.cache_dir:
-        bundle = PartitionArtifactStore(cfg.cache_dir).load_or_compute(
-            ds.graph, spec, cfg.k, cfg.seed, scheme, with_halo=with_halo)
-    else:
-        bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, scheme,
-                                with_halo=with_halo)
-    stage.timings["partition"] = bundle.partition_seconds
-    stage.timings["assemble"] = bundle.assemble_seconds
-    report = stage("partition_eval", lambda: evaluate_partition(
-        ds.graph, bundle.labels).as_dict())
+    with stage.span("partition_stage", method=spec.canonical(), k=cfg.k,
+                    scheme=scheme) as psp:
+        if cfg.cache_dir:
+            bundle = PartitionArtifactStore(cfg.cache_dir).load_or_compute(
+                ds.graph, spec, cfg.k, cfg.seed, scheme, with_halo=with_halo)
+        else:
+            bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, scheme,
+                                    with_halo=with_halo)
+        stage.timings["partition"] = bundle.partition_seconds
+        stage.timings["assemble"] = bundle.assemble_seconds
+        psp.set(cache_hit=bundle.labels_hit)
+        report = stage("partition_eval", lambda: evaluate_partition(
+            ds.graph, bundle.labels).as_dict())
     gnn = GNNConfig(kind=cfg.model, feature_dim=int(ds.features.shape[1]),
                     hidden_dim=cfg.hidden_dim, embed_dim=cfg.embed_dim,
                     num_layers=cfg.num_layers, dropout=cfg.dropout)
@@ -297,8 +341,15 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
     if cfg.serving_dir and cfg.classifier_epochs <= 0:
         raise ValueError("serving_dir requires the classifier stage "
                          "(classifier_epochs > 0)")
-    device = resolve_device(device)
-    stage = _Stages(device)
+    stage = _Stages(resolve_device(device))
+    with stage.span("total", dataset=cfg.dataset, mode=cfg.mode, k=cfg.k):
+        return _train(cfg, spec, stage, ds, params, classifier)
+
+
+def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
+           ds: Optional[NodeDataset], params: Optional[Dict[str, Any]],
+           classifier: Optional[Dict[str, torch.Tensor]]) -> PipelineResult:
+    device = stage.device
     ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
     batch = bundle.batch
     low_memory = cfg.low_memory and cfg.mode == "local"
@@ -313,35 +364,50 @@ def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
     if classifier is None:
         classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
                               ds.num_classes, device)
+    profiler = obs.profiler_session(cfg.torch_profile_dir)
 
     def train():
         common = dict(epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
                       integrate=cfg.integrate, device=device, params=params,
                       tensors=tensors)
-        if cfg.mode == "sync":
-            return train_sync(ds, batch, bundle.halo, gnn, **common)
-        if cfg.mode == "stale":
-            return train_stale(ds, batch, bundle.halo, gnn,
-                               sync_period=cfg.sync_period, **common)
-        return train_local(ds, batch, gnn, sequential=low_memory, **common)
-    trained = stage("train", train)
+        with profiler:
+            if cfg.mode == "sync":
+                return train_sync(ds, batch, bundle.halo, gnn, **common)
+            if cfg.mode == "stale":
+                return train_stale(ds, batch, bundle.halo, gnn,
+                                   sync_period=cfg.sync_period, **common)
+            return train_local(ds, batch, gnn, sequential=low_memory,
+                               **common)
+    trained = stage("train", train, mode=cfg.mode, epochs=cfg.epochs,
+                    model=cfg.model, k=cfg.k)
     stage.timings["train_epochs"] = trained.seconds["epochs"]
     stage.timings["train_embed"] = trained.seconds["embed"]
+    collectives = exchange_collective_bytes(gnn, bundle.halo, batch.k,
+                                            cfg.mode, cfg.epochs,
+                                            cfg.sync_period)
+    # the report's byte count, in the registry too: a trace is
+    # self-contained
+    obs.gauge("train.collective_bytes_per_step").set(collectives["total"])
+    obs.gauge("train.collective_bytes_per_epoch_avg").set(
+        collectives["per_epoch_avg"])
     accuracy: Dict[str, float] = {}
     if cfg.classifier_epochs > 0:
         accuracy, classifier = stage("classifier", lambda: train_classifier(
             ds, trained.embeddings, hidden=cfg.classifier_hidden,
-            epochs=cfg.classifier_epochs, seed=cfg.seed, params=classifier))
+            epochs=cfg.classifier_epochs, seed=cfg.seed, params=classifier),
+            epochs=cfg.classifier_epochs)
     result = PipelineResult(
         dataset=ds, labels=bundle.labels, batch=batch, spec=spec,
         bundle=bundle, partition=report, tensors=tensors, gnn=gnn,
         params=trained.params, classifier=classifier,
         embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
         timings={}, accuracy=accuracy, losses=trained.losses,
-        exchanges=trained.exchanges,
-        collectives=exchange_collective_bytes(
-            gnn, bundle.halo, batch.k, cfg.mode, cfg.epochs,
-            cfg.sync_period))
+        exchanges=trained.exchanges, collectives=collectives,
+        profile_path=profiler.path)
+    if cfg.checkpoint_dir:
+        result.checkpoint_path = stage("checkpoint", lambda: save_checkpoint(
+            cfg.checkpoint_dir, cfg.epochs, trained.params))
+        log.info("saved model checkpoint: %s", result.checkpoint_path)
     return _finish(cfg, stage, result)
 
 
@@ -353,8 +419,16 @@ def run_inference(cfg: PipelineConfig, device: DeviceLike = "cuda",
     """Run the pipeline without training; ``params``/``classifier``
     default to seeded ones."""
     spec = _check(cfg)
-    device = resolve_device(device)
-    stage = _Stages(device)
+    stage = _Stages(resolve_device(device))
+    with stage.span("total", dataset=cfg.dataset, mode="inference",
+                    k=cfg.k):
+        return _infer(cfg, spec, stage, ds, params, classifier)
+
+
+def _infer(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
+           ds: Optional[NodeDataset], params: Optional[Dict[str, Any]],
+           classifier: Optional[Dict[str, torch.Tensor]]) -> PipelineResult:
+    device = stage.device
     ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
     batch = bundle.batch
     tensors = stage("to_device",

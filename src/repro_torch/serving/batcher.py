@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from .cache import LruNodeCache
 from .inductive import InductiveEngine
 from .store import classify
@@ -144,9 +146,14 @@ class ContinuousBatcher:
             return []
         self.flushes += 1
         self.flush_reasons[reason] = self.flush_reasons.get(reason, 0) + 1
+        obs.counter(f"serving.flush.{reason}").inc()
+        obs.histogram("serving.batch_size").record(len(batch))
         known = [q for q in batch if self.store.is_known(q.node_id)]
         unknown = [q for q in batch if not self.store.is_known(q.node_id)]
-        answers = self._flush_known(known) + self._flush_inductive(unknown)
+        with obs.span("serving.flush", reason=reason, batch=len(batch),
+                      known=len(known), unknown=len(unknown)):
+            answers = self._flush_known(known) \
+                + self._flush_inductive(unknown)
         self.queries_served += len(answers)
         return answers
 
@@ -162,6 +169,8 @@ class ContinuousBatcher:
     def _flush_known(self, queries: List[Query]) -> List[Answer]:
         if not queries:
             return []
+        obs.counter("serving.bucket.classify."
+                    f"{bucket_of(len(queries), self.max_batch)}").inc()
         rows: List[Optional[torch.Tensor]] = []
         sources: List[str] = []
         miss_pos: List[int] = []
@@ -193,6 +202,7 @@ class ContinuousBatcher:
         b_pad = bucket_of(len(queries), self.max_batch)
         self.inductive_buckets[b_pad] = \
             self.inductive_buckets.get(b_pad, 0) + 1
+        obs.counter(f"serving.bucket.inductive.{b_pad}").inc()
         nb_lists = [q.neighbors if q.neighbors is not None
                     else np.zeros(0, np.int64) for q in queries]
         emb, logits, degraded, pids = self.inductive.infer(nb_lists, b_pad)

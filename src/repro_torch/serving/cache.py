@@ -2,7 +2,8 @@
 
 A Zipf-shaped query stream concentrates on a small hot set; the cache keeps
 those rows (views of device tensors) in front of the sharded lookup and
-counts hits and misses.
+counts hits, misses and evictions, in its own fields and in the
+``serving.cache.*`` counters of :mod:`repro_torch.obs`.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from collections import OrderedDict
 from typing import Optional
 
 import torch
+
+from repro_torch import obs
 
 __all__ = ["LruNodeCache"]
 
@@ -37,9 +40,11 @@ class LruNodeCache:
         row = self._d.get(key)
         if row is None:
             self.misses += 1
+            obs.counter("serving.cache.misses").inc()
             return None
         self._d.move_to_end(key)
         self.hits += 1
+        obs.counter("serving.cache.hits").inc()
         return row
 
     def put(self, node_id: int, row: torch.Tensor) -> None:
@@ -50,6 +55,7 @@ class LruNodeCache:
         if len(self._d) > self.capacity:
             self._d.popitem(last=False)
             self.evictions += 1
+            obs.counter("serving.cache.evictions").inc()
 
     @property
     def hit_rate(self) -> float:

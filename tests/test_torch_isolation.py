@@ -3,9 +3,12 @@
 * Importing every ``repro_torch`` module and every module ``chip_smoke.py``
   imports leaves neither ``jax`` nor any ``repro`` module in
   ``sys.modules`` (checked in a fresh interpreter).
+* ``python -m repro_torch.obs`` (summarize and validate) loads neither
+  either.
 * Entry points default to CUDA and raise without it unless the caller
   passes ``device="cpu"``, the training pipeline and its CLI
-  (``python -m repro_torch.pipeline run``) too, and the LM's
+  (``python -m repro_torch.pipeline run``, with ``--torch-profile`` too:
+  no profile is written on a fallback device) too, and the LM's
   (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``); ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
   repository is absent.
@@ -76,6 +79,38 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.tools.training_parity"} <= set(got["mods"])
     assert {"repro_torch.gnn.halo",
             "repro_torch.kernels.exchange"} <= set(got["mods"])
+    assert {"repro_torch.obs", "repro_torch.obs.trace",
+            "repro_torch.obs.metrics", "repro_torch.obs.sampler",
+            "repro_torch.obs.summarize", "repro_torch.obs.__main__",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.tools.obs_overhead"} <= set(got["mods"])
+
+
+@pytest.mark.parametrize("cmd", ["summarize", "validate"])
+def test_obs_cli_loads_neither_jax_nor_the_reference(tmp_path, cmd):
+    from repro_torch import obs
+    obs.reset()
+    obs.enable()
+    with obs.span("pipeline.train"):
+        pass
+    trace = obs.export_trace(str(tmp_path / "t.json"))
+    obs.reset()
+    script = f"""
+import json, runpy, sys
+sys.path[:0] = [{os.path.join(ROOT, 'src')!r}]
+sys.argv = ["python -m repro_torch.obs", {cmd!r}, {trace!r}]
+try:
+    runpy.run_module("repro_torch.obs", run_name="__main__")
+except SystemExit as e:
+    code = e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print(json.dumps({{"code": code, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"code": 0, "bad": []}
 
 
 @pytest.fixture
@@ -140,6 +175,20 @@ def test_pipeline_cli_needs_a_gpu_unless_told_cpu(device):
         assert out.returncode == 0, out.stderr
         assert "PipelineReport" in out.stdout
         assert "accuracy" in out.stdout
+
+
+def test_torch_profile_on_the_cuda_default_raises_without_a_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    prof = tmp_path / "prof"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.pipeline", "run", "--dataset",
+         "karate", "--k", "2", "--epochs", "1", "--classifier-epochs", "1",
+         "--torch-profile", str(prof), "--trace", str(tmp_path / "t.json")],
+        capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert not prof.exists() and not (tmp_path / "t.json").exists()
 
 
 def test_lm_entry_points_raise_without_cuda(no_cuda):
