@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN serving, GCN training, the paper's
 partitioner comparison, Proteins training, LM serving, the sync and stale
-training modes and the traced, checkpointed and profiled main path on one
-NVIDIA GPU.
+training modes, the traced, checkpointed and profiled main path and the
+serving commands (``replay``, ``serve``, ``client``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -134,7 +134,24 @@ Phases, each fatal on failure:
    projected disabled-mode overhead is under 1% of the untraced wall.
    Prints ms per epoch untraced and traced, the sum of the epoch spans,
    the 10 hottest spans, the checkpoint's bytes and save and restore
-   seconds, and the projected overhead.
+   seconds, and the projected overhead;
+16. serving's command surface, through ``repro_torch.serving.cli.main``
+   at the main path's configuration (phase 5's partition, from the
+   cache): ``replay`` into an empty bundle dir (a miss: it trains and
+   exports), then the same command (a hit), 10,000 Zipf queries at 2%
+   unseen each, with ``--bench-json``; ``replay --method metis --bundle``;
+   ``make_server`` on port 0 in a thread, the port's ``client`` over 8
+   connections (2,000 queries), 512 known and 16 inductive queries over 8
+   connections; kernel A at the buckets the hit replay used, with its
+   device us per call (``torch.profiler``). Gates: the miss exports and
+   launches kernels A and B, the hit launches no kernel B and kernel A
+   exactly warmup's 7 plus one per inductive flush; 0 mismatches and 1
+   degraded answer per replay; 2 bench rows carrying the card's name and
+   power limit; the bundle under ``metis``'s fingerprint raises
+   ``StaleServingArtifact``; every TCP label equal to the offline key,
+   the no-neighbour query degraded; more than one query per flush over
+   the server's life (batching across connections); the server thread
+   joined within 10 s. Prints ms and qps of each step.
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
@@ -214,10 +231,11 @@ def device_us(fn, name, calls=20):
     ``torch.profiler`` (``repro_torch.tools.kernel_turns.device_us``):
     the kernel's own time, without the wrapper's host work that CUDA
     events around a call also hold. A window on the card has lost records
-    (its first, sometimes more), so the launches a call are a lower
-    bound: this fails on none, or on more records than calls (more than
-    one launch a call). Phase 9's decode profile counts kernel D's
-    launches exactly."""
+    (its first, sometimes more, once all of three windows in a row); the
+    helper opens each window with a kernel of its own and keeps the best
+    of up to eight, and the launches a call are a lower bound: this fails
+    on none, or on more records than calls (more than one launch a call).
+    Phase 9's decode profile counts kernel D's launches exactly."""
     from repro_torch.tools.kernel_turns import device_us as profiled
     us, per_call = profiled(fn, (name,), calls)
     check(0 < per_call <= 1, f"{per_call} {name} launches a call over "
@@ -317,6 +335,59 @@ def replay_trained_bundle(result, cfg, dev, label):
     check(row["served_by_source"].get("degraded") == 1,
           f"{label}: the zero-neighbour query did not degrade")
     return row, batcher, workload, store
+
+
+def star_graph_case(inductive, unseen, b, launches_per_call=None):
+    """Kernel A on the inductive fallback's bucket-``b`` star graph (the
+    first ``b`` of the ``unseen`` neighbour lists): error against its plain
+    version, CUDA-event ms of it, the plain version and ``torch.sparse.mm``,
+    the bound. Given its device ``launches_per_call`` (phase 8's profile
+    counts them exactly), also its device us per call: the mean device us
+    of a launch over 20 calls (``torch.profiler``) times that count, since
+    a window may lose records; more records than launches fail."""
+    import torch
+    from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import ops
+    dev = inductive.store.device
+    emb_dim, m = inductive.store.embed_dim, inductive.max_neighbors
+    nb_emb, nb_mask, _ = inductive.prepare(unseen[:b], b)
+    src, dst, row_ptr = inductive.star(b)
+    hs = torch.cat([torch.zeros((b, emb_dim), device=dev),
+                    nb_emb.reshape(b * m, emb_dim)])
+    ws = nb_mask.reshape(-1).contiguous()
+    invs = ops.inv_degree(torch.cat([nb_mask.sum(dim=1),
+                                     torch.ones(b * m, device=dev)]))
+    rows, arcs = b * (1 + m), b * m
+    out = kernel_a.launch(hs, src, row_ptr, ws, invs)
+    err = max_err(out, kernel_a.plain(hs, src, dst, ws, rows, invs))
+    sp = torch.sparse_csr_tensor(row_ptr, src, ws * invs[dst.long()],
+                                 size=(rows, rows), check_invariants=True)
+    live = int((ws > 0).sum())
+    bound, by = bound_ms(
+        4 * (rows * emb_dim + 2 * arcs + (rows + 1) + rows + rows * emb_dim),
+        2 * live * emb_dim + rows * emb_dim)
+    case = dict(
+        ms=time_ms(lambda: kernel_a.launch(hs, src, row_ptr, ws, invs)),
+        plain_ms=time_ms(lambda: kernel_a.plain(hs, src, dst, ws, rows,
+                                                invs)),
+        library_ms=time_ms(lambda: torch.sparse.mm(sp, hs)),
+        live=live)
+    if launches_per_call:
+        from repro_torch.tools.kernel_turns import device_us as profiled
+        us, per_call = profiled(
+            lambda: kernel_a.launch(hs, src, row_ptr, ws, invs),
+            ("csr_aggregate",))
+        check(0 < per_call <= launches_per_call,
+              f"{per_call} kernel A launches a call profiled at bucket {b} "
+              f"({launches_per_call} expected)")
+        case.update(device_us_per_launch=us,
+                    profiled_launches_per_call=per_call,
+                    device_us=us * launches_per_call)
+    print(f"csr_aggregate bucket {b}: {json.dumps(case)}")
+    case.update(err=err, bound_ms=bound, bound_by=by,
+                shape={"bucket": b, "N": rows, "F": emb_dim, "E": arcs,
+                       "E_live": live})
+    return case
 
 
 def key_accuracy(result):
@@ -1636,6 +1707,242 @@ def traced_main_path(dev, ds, cache_dir, phase5):
     return out
 
 
+def inductive_bucket_counts():
+    """``serving.bucket.inductive.<b>`` counters (always on): the
+    inductive flushes of each bucket so far."""
+    from repro_torch import obs
+    pre = "serving.bucket.inductive."
+    return {int(k[len(pre):]): v["value"] for k, v in
+            obs.registry().snapshot(("counter",)).items()
+            if k.startswith(pre)}
+
+
+def run_cli(argv):
+    """(exit code, the JSON object it printed, wall s) of one
+    ``python -m repro_torch.serving`` command, run in this process."""
+    import io
+    from repro_torch.serving import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+
+def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
+    """Phase 16: serving's command surface on the card, through the
+    user's entry point (``repro_torch.serving.cli.main``) at the main
+    path's configuration (phase 5's partition, from the cache).
+
+    - ``replay`` with a bundle dir that has no bundle: a miss, which
+      trains and exports (kernels B and A launch), then the 10,000-query
+      replay; the same command again: a hit (no kernel B launch). Both
+      append a bench row to one file, which must then hold 2 rows with the
+      card's name and power limit; both give 0 mismatches and 1 degraded
+      answer; the hit's kernel A launches are exactly warmup's 7 and one
+      per inductive flush;
+    - the bundle under ``metis``'s fingerprint raises
+      ``StaleServingArtifact``, and ``replay --method metis --bundle``
+      serves it (an explicit path skips the key);
+    - ``make_server`` on port 0 in a thread: the port's ``client`` (8
+      connections, 2,000 queries), then 512 known-node queries over 8
+      connections of the phase's own (every label equal to the offline
+      key) and 16 inductive ones (the one with no neighbour degraded);
+      ``stats`` must show more than one query a flush (batching across
+      connections); the server thread joins within 10 s;
+    - kernel A at the buckets the hit replay used: error against plain,
+      CUDA-event ms, device us a call (``torch.profiler``; its device
+      launches a call, ``a_launches_per_call``, from phase 8's profile),
+      bound, plain and ``torch.sparse.mm``.
+
+    Returns (summary, the ``kernels`` row)."""
+    import threading
+    import numpy as np
+    from repro_torch.core import PartitionerSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serving import cli
+    from repro_torch.serving.replay import make_zipf_workload
+    from repro_torch.serving.store import (EmbeddingStore,
+                                           StaleServingArtifact)
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke-serving-", dir=ROOT)
+    bundle_dir = os.path.join(tmp.name, "bundles")
+    rows_path = os.path.join(tmp.name, "rows.json")
+    bundle = os.path.join(
+        bundle_dir,
+        f"serving-{PartitionerSpec.parse('leiden_fusion').fingerprint()}.npz")
+    argv = ["replay", "--dataset", "arxiv-like", "--nodes", "169343",
+            "--k", "8", "--hidden-dim", "128", "--embed-dim", "128",
+            "--epochs", "60", "--classifier-epochs", "150",
+            "--cache-dir", cache_dir, "--bundle-dir", bundle_dir,
+            "--bench-json", rows_path, "--json"]
+
+    def replay_gates(row, label):
+        print(f"phase 16 {label}: {json.dumps(row, sort_keys=True)}")
+        check(row["label_mismatches"] == 0,
+              f"{label}: {row['label_mismatches']} answers differ from the "
+              f"offline key")
+        check(row["served_by_source"].get("degraded") == 1,
+              f"{label}: the zero-neighbour query did not degrade")
+        check(row["queries"] == 10_000 and row["device"].startswith("cuda")
+              and row["use_kernel"], f"{label}: not the card's replay")
+
+    # -- replay: a miss (train + export), then a hit ----------------------
+    check(not os.path.exists(bundle), "the bundle dir is not empty")
+    ops.reset_launch_counts()
+    rc, row, wall = run_cli(argv)
+    miss_launches = ops.launch_counts()
+    check(rc == 0 and os.path.exists(bundle), "replay did not export")
+    replay_gates(row, "replay miss")
+    print(f"phase 16 replay miss: {wall:.3f} s wall (dataset, training, "
+          f"export, replay), launches {json.dumps(miss_launches)}")
+    check(miss_launches["fused_gcn_layer_need_agg"] > 0
+          and miss_launches["csr_aggregate"] > 0,
+          f"the miss did not train on kernels A and B: {miss_launches}")
+    with np.load(bundle) as z:
+        same = bool(np.array_equal(z["embeddings"], phase5["table"].numpy()))
+    print(f"phase 16: the exported table is bitwise phase 5's: {same}")
+    out["miss"] = {"wall_s": wall, "row": row, "launches": miss_launches,
+                   "table_equals_phase5": same}
+
+    ops.reset_launch_counts()
+    before = inductive_bucket_counts()
+    rc, row, wall = run_cli(argv)
+    hit_launches = ops.launch_counts()
+    after = inductive_bucket_counts()
+    buckets = {b: after[b] - before.get(b, 0) for b in after
+               if after[b] - before.get(b, 0)}
+    replay_gates(row, "replay hit")
+    print(f"phase 16 replay hit: {wall:.3f} s wall, qps "
+          f"{row['throughput_qps']} p50 {row['p50_ms']} ms p99 "
+          f"{row['p99_ms']} ms, inductive flushes by bucket {buckets}, "
+          f"launches {json.dumps(hit_launches)}")
+    check(rc == 0 and hit_launches["fused_gcn_layer"] == 0
+          and hit_launches["fused_gcn_layer_need_agg"] == 0,
+          f"the hit trained or embedded again: {hit_launches}")
+    check(hit_launches["csr_aggregate"]
+          == row["warm_buckets"] + sum(buckets.values()) > row["warm_buckets"],
+          f"kernel A launches {hit_launches['csr_aggregate']} are not "
+          f"warmup's {row['warm_buckets']} and one per inductive flush "
+          f"({buckets})")
+    with open(rows_path) as f:
+        rows = json.load(f)
+    check(len(rows) == 2 and all(r["gpu_name"] and r["power_limit_w"]
+                                 for r in rows),
+          f"{rows_path}: {len(rows)} rows, card fields "
+          f"{[(r.get('gpu_name'), r.get('power_limit_w')) for r in rows]}")
+    print(f"phase 16 bench rows: 2, {rows[1]['gpu_name']}, "
+          f"{rows[1]['power_limit_w']} W")
+    out["hit"] = {"wall_s": wall, "row": row, "launches": hit_launches,
+                  "inductive_flushes": buckets}
+
+    # -- stale: another spec's fingerprint is a hard error -----------------
+    metis = PartitionerSpec.parse("metis").fingerprint()
+    try:
+        EmbeddingStore.load(bundle, device=dev, expect_fingerprint=metis)
+        stale = False
+    except StaleServingArtifact as e:
+        stale = True
+        print(f"phase 16 stale: {e}")
+    check(stale, "a bundle under another spec loaded")
+    rc, row, wall = run_cli(["replay", "--method", "metis", "--bundle",
+                             bundle, "--json"])
+    replay_gates(row, "replay --method metis --bundle")
+    out["explicit_bundle"] = {"wall_s": wall, "row": row}
+
+    # -- serve and client across connections -------------------------------
+    args = cli.build_parser().parse_args(["serve", "--port", "0",
+                                          "--bundle", bundle])
+    t0 = time.perf_counter()
+    srv, state = cli.make_server(args)
+    start_s = time.perf_counter() - t0
+    host, port = srv.server_address[:2]
+    thread = threading.Thread(target=srv.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+    store = state.store
+    try:
+        rc, client, wall = run_cli(["client", "--host", host, "--port",
+                                    str(port), "--concurrency", "8",
+                                    "--queries", "2000", "--json"])
+        print(f"phase 16 client: {json.dumps(client, sort_keys=True)}")
+        check(rc == 0 and client["queries"] == 2000
+              and "?" not in client["served_by_source"],
+              f"the client's run failed: {client}")
+        rng = np.random.default_rng(16)
+        nodes = rng.integers(0, store.n, size=512)
+        known = [{"op": "query", "id": i, "node": int(v)}
+                 for i, v in enumerate(nodes)]
+        replies, lats, kwall = cli.send_queries(host, port, known, 8)
+        labels = np.asarray([r["label"] for r in replies])
+        check([r["node"] for r in replies] == nodes.tolist()
+              and bool((labels == store.predictions[nodes]).all()),
+              f"{int((labels != store.predictions[nodes]).sum())} of 512 "
+              f"TCP answers differ from the offline key")
+        print(f"phase 16 tcp known: 512 queries on 8 connections in "
+              f"{kwall:.3f} s ({512 / kwall:.1f} qps), p50 "
+              f"{np.percentile(lats, 50):.3f} ms p99 "
+              f"{np.percentile(lats, 99):.3f} ms; labels equal the key")
+        nbs = [nb for node, nb in make_zipf_workload(
+            store.n, 2000, unseen_frac=0.1, seed=16) if node >= store.n]
+        ind = [{"op": "query", "node": store.n + j,
+                "neighbors": [int(x) for x in nbs[j]]} for j in range(16)]
+        ind[0]["neighbors"] = []
+        replies, _, iwall = cli.send_queries(host, port, ind, 8)
+        sources = [r["source"] for r in replies]
+        check(sources == ["degraded"] + ["inductive"] * 15,
+              f"inductive answers' sources {sources}")
+        (stats,), _, _ = cli.send_queries(host, port, [{"op": "stats"}], 1)
+        mean_batch = stats["queries_served"] / max(stats["flushes"], 1)
+        print(f"phase 16 tcp inductive: 16 in {iwall:.3f} s; server stats "
+              f"{stats['queries_served']} queries in {stats['flushes']} "
+              f"flushes (mean batch {mean_batch:.2f}), reasons "
+              f"{stats['flush_reasons']}")
+        check(mean_batch > 1, f"no batching across connections: mean "
+                              f"batch {mean_batch}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.close(10)
+        thread.join(10)
+    check(not thread.is_alive() and not state.pump_thread.is_alive(),
+          "the server did not stop within 10 s")
+    out["serve"] = {"start_s": start_s, "client": client,
+                    "known_qps": 512 / kwall,
+                    "known_p50_ms": float(np.percentile(lats, 50)),
+                    "known_p99_ms": float(np.percentile(lats, 99)),
+                    "queries_served": stats["queries_served"],
+                    "flushes": stats["flushes"], "mean_batch": mean_batch}
+
+    # -- kernel A at the buckets the hit replay used -----------------------
+    unseen = [nb for node, nb in make_zipf_workload(
+        store.n, 10_000, unseen_frac=0.02, seed=0) if node >= store.n]
+    cases = {b: star_graph_case(state.batcher.inductive, unseen, b,
+                                a_launches_per_call)
+             for b in sorted(buckets)}
+    top = max(buckets, key=lambda k: (buckets[k], k))
+    c = cases[top]
+    krow = {
+        "name": "csr_aggregate_serving_replay", "route": "cuda",
+        "source": "src/repro_torch/csrc/csr_aggregate.cu",
+        "replaces": "src/repro/kernels/csr_aggregate.py:148",
+        "launches": hit_launches["csr_aggregate"],
+        "max_abs_err": max(x["err"] for x in cases.values()),
+        "ms": c["ms"], "device_ms": c["device_us"] / 1e3,
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "shape": c["shape"], "inductive_flushes": buckets,
+        "buckets": {b: {k: x[k] for k in (
+            "ms", "device_us", "profiled_launches_per_call", "plain_ms",
+            "library_ms", "bound_ms", "live")} for b, x in cases.items()}}
+    del state, store, srv
+    tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving surface phase: {out['phase_s']:.1f} s wall")
+    return out, krow
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1932,46 +2239,20 @@ def main():
 
     # kernel A at the serving path's inductive buckets
     buckets = row["inductive_buckets"]
-    errs, times = [], {}
-    for b in (1, 2, 4, 8, 16, 32, 64):
-        nb_emb, nb_mask, _ = batcher.inductive.prepare(unseen[:b], b)
-        m = MAX_NEIGHBORS
-        src, dst, row_ptr = batcher.inductive.star(b)
-        hs = torch.cat([torch.zeros((b, emb_dim), device=dev),
-                        nb_emb.reshape(b * m, emb_dim)])
-        ws = nb_mask.reshape(-1).contiguous()
-        invs = ops.inv_degree(torch.cat([nb_mask.sum(dim=1),
-                                         torch.ones(b * m, device=dev)]))
-        out = kernel_a.launch(hs, src, row_ptr, ws, invs)
-        errs.append(max_err(out, kernel_a.plain(hs, src, dst, ws, b * (1 + m),
-                                                invs)))
-        sp = torch.sparse_csr_tensor(row_ptr, src, ws * invs[dst.long()],
-                                     size=(b * (1 + m), b * (1 + m)),
-                                     check_invariants=True)
-        times[b] = dict(
-            ms=time_ms(lambda: kernel_a.launch(hs, src, row_ptr, ws, invs)),
-            plain_ms=time_ms(lambda: kernel_a.plain(hs, src, dst, ws,
-                                                    b * (1 + m), invs)),
-            library_ms=time_ms(lambda: torch.sparse.mm(sp, hs)),
-            live=int((ws > 0).sum()))
-        print(f"csr_aggregate bucket {b}: {json.dumps(times[b])}")
+    times = {b: star_graph_case(batcher.inductive, unseen, b)
+             for b in (1, 2, 4, 8, 16, 32, 64)}
     b = max(buckets, key=lambda k: (buckets[k], k)) if buckets else 64
     b = int(b)
-    rows, arcs = b * (1 + MAX_NEIGHBORS), b * MAX_NEIGHBORS
-    bound, by = bound_ms(
-        4 * (rows * emb_dim + 2 * arcs + (rows + 1) + rows + rows * emb_dim),
-        2 * times[b]["live"] * emb_dim + rows * emb_dim)
     kernels.append({
         "name": "csr_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/csr_aggregate.cu",
         "replaces": "src/repro/kernels/csr_aggregate.py:148",
         "launches": launches["csr_aggregate"],
-        "max_abs_err": max(errs),
+        "max_abs_err": max(t["err"] for t in times.values()),
         "ms": times[b]["ms"], "plain_ms": times[b]["plain_ms"],
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": times[b]["bound_ms"], "bound_by": times[b]["bound_by"],
         "library_ms": times[b]["library_ms"],
-        "shape": {"bucket": b, "N": rows, "F": emb_dim, "E": arcs,
-                  "E_live": times[b]["live"]}})
+        "shape": times[b]["shape"]})
 
     per_call = profile_training(trained, dev)
     for k in kernels:           # the rows of kernels A and B so far
@@ -2036,8 +2317,14 @@ def main():
     # -- 15. the traced main path, its checkpoint and profile -------------
     torch.cuda.empty_cache()
     traced = traced_main_path(dev, main_ds, main_cache.name, phase5)
+
+    # -- 16. serving's command surface: replay, serve, client ---------------
+    torch.cuda.empty_cache()
+    surface, surface_kernel = serving_surface(dev, main_cache.name, phase5,
+                                              round(per_call["A"]))
     main_cache.cleanup()
     kernels.append(exchange_kernel)
+    kernels.append(surface_kernel)
     print("summary: " + json.dumps({
         "phase6": {k: {f: v[f] for f in ("loss_ratio", "table_ratio",
                                          "table_ratio_full")}
@@ -2050,7 +2337,9 @@ def main():
                          "bytes_per_epoch": r["per_epoch_avg"],
                          "ms_per_epoch": r["ms_per_epoch"]}
                      for m, r in frontier.items()},
-        "phase15": traced}))
+        "phase15": traced,
+        "phase16": {k: v for k, v in surface.items()
+                    if k in ("serve", "phase_s")}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

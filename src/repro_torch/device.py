@@ -6,7 +6,8 @@ asks for it (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
-from typing import Union
+import subprocess
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -20,6 +21,28 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "repro_torch runs on a CUDA GPU by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def card_info(device: DeviceLike) -> Tuple[Optional[str], Optional[float]]:
+    """(name, power limit in W) of the card ``device`` runs on, as
+    ``nvidia-smi --query-gpu=name,power.limit`` reports them; (None, None)
+    on the CPU or where ``nvidia-smi`` cannot be read."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None, None
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None, None
+    name, _, limit = out.strip().splitlines()[0].rpartition(",")
+    try:
+        return name.strip(), float(limit)
+    except ValueError:              # "[N/A]" on a card without a limit
+        return name.strip(), None
 
 
 def synchronize(device: torch.device) -> None:

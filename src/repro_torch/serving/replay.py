@@ -5,17 +5,32 @@ generator, same draws for the same seed), mixed with a fraction of unseen
 node ids carrying neighbour lists — always including one with no neighbour,
 so the degraded path runs every time. Known-node answers are held to the
 bundle's offline answer key exactly; ``verify=True`` fails on any mismatch.
+
+:func:`bench_row` reduces a replay to the reference's bench-row schema
+(rounded as the reference rounds it) and :func:`append_bench_rows` appends
+rows to a JSON trajectory file atomically. Unlike the reference, which
+appends to ``benchmarks/artifacts/BENCH_serving.json`` by default, rows are
+written only where the caller names a file (``DEFAULT_BENCH_JSON`` is None).
 """
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.device import card_info
+
 from .batcher import Answer, ContinuousBatcher
 
-__all__ = ["make_zipf_workload", "run_replay"]
+__all__ = ["make_zipf_workload", "run_replay", "bench_row",
+           "append_bench_rows", "DEFAULT_BENCH_JSON"]
+
+#: No default trajectory file: a bench row is written only to a named path.
+DEFAULT_BENCH_JSON: Optional[str] = None
 
 Workload = List[Tuple[int, Optional[np.ndarray]]]
 
@@ -109,3 +124,64 @@ def run_replay(batcher: ContinuousBatcher, workload: Workload,
         "device": str(store.device),
         "partition_fingerprint": store.fingerprint,
     }
+
+
+def bench_row(row: Dict[str, Any]) -> Dict[str, Any]:
+    """The bench row of one :func:`run_replay` result: the reference's
+    keys and rounding, with ``warm_buckets`` in place of its two compile
+    counts, plus the device, whether the inductive aggregation ran on the
+    CUDA kernel, and the card's ``nvidia-smi`` name and power limit (None
+    on the CPU)."""
+    gpu_name, power_limit_w = card_info(row["device"])
+    return {
+        "queries": row["queries"],
+        "wall_s": round(row["wall_s"], 3),
+        "throughput_qps": round(row["throughput_qps"], 1),
+        "p50_ms": round(row["p50_ms"], 3),
+        "p99_ms": round(row["p99_ms"], 3),
+        "mean_ms": round(row["mean_ms"], 3),
+        "cache_hit_rate": row["cache_hit_rate"],
+        "warm_buckets": row["warm_buckets"],
+        "flushes": row["flushes"],
+        "flush_reasons": row["flush_reasons"],
+        "served_by_source": row["served_by_source"],
+        "per_shard_served": row["per_shard_served"],
+        "label_mismatches": row["label_mismatches"],
+        "k": row["k"],
+        "n": row["n"],
+        "max_batch": row["max_batch"],
+        "max_wait_ms": row["max_wait_ms"],
+        "use_kernel": row["device"].startswith("cuda"),
+        "partition_fingerprint": row["partition_fingerprint"],
+        "device": row["device"],
+        "gpu_name": gpu_name,
+        "power_limit_w": power_limit_w,
+    }
+
+
+def append_bench_rows(rows: List[Dict[str, Any]], path: str) -> str:
+    """Append ``rows``, stamped with one shared ``ts``, to the JSON list in
+    ``path`` (created if missing; an unreadable file starts a new list).
+    The rewrite goes through a temporary file and ``os.replace``, so an
+    interrupted run cannot truncate the history. Returns ``path``."""
+    directory = os.path.dirname(path) or "."
+    os.makedirs(directory, exist_ok=True)
+    history: List[Dict[str, Any]] = []
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                history = json.load(f)
+        except (OSError, ValueError):
+            history = []
+    stamp = time.time()
+    history.extend({**r, "ts": stamp} for r in rows)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(history, f, indent=2)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return path

@@ -84,29 +84,37 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, names: tuple, calls: int = 20):
+def device_us(fn, names: tuple, calls: int = 20, tries: int = 8):
     """(device us per launch, launches per call) of the kernels whose name
     holds one of ``names``, over ``calls`` calls under ``torch.profiler``
-    (CUPTI). A window on the card has lost records (its first, sometimes
-    more; once all of them), so a window whose count is not a whole
-    number of launches a call is taken again (three tries) and the
-    launches a call are a lower bound."""
+    (CUPTI). A window on the card has lost records: its first, sometimes
+    more, and in one run every record of three windows in a row. So each
+    window opens with a kernel of its own, synchronized, to take the loss
+    of a first record; a window whose count is not a whole number of
+    launches a call is taken again (up to ``tries`` windows); and the
+    window with the most records is kept, so the launches a call are a
+    lower bound."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    best = []
+    for _ in range(tries):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=torch.cuda.current_device()).add_(1)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and any(n in e.name for n in names)]
-        if len(evs) % calls == 0 and evs:
+        if len(evs) > len(best):
+            best = evs
+        if best and len(best) % calls == 0:
             break
-    return (sum(e.time_range.elapsed_us() for e in evs)
-            / max(len(evs), 1), len(evs) / calls)
+    return (sum(e.time_range.elapsed_us() for e in best)
+            / max(len(best), 1), len(best) / calls)
 
 
 def turns(row: dict, key: str, mine, theirs, names: tuple) -> None:

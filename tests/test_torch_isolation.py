@@ -220,3 +220,136 @@ def test_serve_cli_needs_a_gpu_unless_told_cpu(device):
         assert out.returncode == 0, out.stderr
         report = json.loads(out.stdout)
         assert report["finite"] and report["device"] == "cpu"
+
+
+# ``python -m repro_torch.serving`` in a fresh interpreter; it prints which
+# ``jax`` and ``repro`` modules were loaded, whether the command returned
+# or raised (SIGINT is the interpreter's default, so a server stops on it)
+SERVING_RUNNER = """
+import json, runpy, signal, sys
+sys.path[:0] = [{src!r}]
+signal.signal(signal.SIGINT, signal.default_int_handler)
+sys.argv = ["python -m repro_torch.serving"] + {argv!r}
+code = None
+try:
+    runpy.run_module("repro_torch.serving", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code
+finally:
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+    print(json.dumps({{"code": code, "bad": bad}}), flush=True)
+"""
+TINY_EXPORT = ["--dataset", "karate", "--k", "2", "--epochs", "1",
+               "--classifier-epochs", "2", "--hidden-dim", "8",
+               "--embed-dim", "8"]
+
+
+def _serving_runner(argv):
+    return [sys.executable, "-c",
+            SERVING_RUNNER.format(src=os.path.join(ROOT, "src"), argv=argv)]
+
+
+def _runner_result(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def _serve_until_answered(cmd, env, timeout=120):
+    """Start a ``serve`` command, wait for its ``listening on host:port``
+    line, ask it for ``meta``, stop it with SIGINT. Returns (meta, return
+    code, the runner's result)."""
+    import queue
+    import signal
+    import socket
+    import threading
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        line = ""
+        while not line.startswith("listening on "):
+            line = lines.get(timeout=timeout)
+        host, port = line.split()[2].rsplit(":", 1)
+        with socket.create_connection((host, int(port)), timeout=30) as s:
+            s.sendall(b'{"op": "meta"}\n')
+            meta = json.loads(s.makefile("rb").readline())
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=60)
+        reader.join(timeout=30)
+        rest = []
+        while not lines.empty():
+            rest.append(lines.get_nowait())
+        return meta, proc.returncode, _runner_result("".join(rest))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+@pytest.mark.parametrize("command", ["", "replay", "serve", "client"])
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_serving_cli_needs_a_gpu_unless_told_cpu_and_loads_no_reference(
+        tmp_path, command, device):
+    """Each serving command (and the bare module, which replays) raises
+    without a GPU unless given ``--device cpu``, runs with it, and loads
+    neither ``jax`` nor ``repro``."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [command] if command else []
+    if device is None:
+        out = subprocess.run(_serving_runner(argv), capture_output=True,
+                             text=True, timeout=120, env=env, cwd=ROOT)
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+        assert _runner_result(out.stdout) == {"code": None, "bad": []}
+        return
+    argv += ["--device", "cpu"]
+    if command == "serve":
+        meta, rc, got = _serve_until_answered(_serving_runner(
+            argv + TINY_EXPORT + ["--port", "0", "--bundle-dir",
+                                  str(tmp_path)]), env)
+        assert meta["n"] == 34 and meta["k"] == 2
+        assert rc == 0 and got == {"code": 0, "bad": []}
+        return
+    if command == "client":
+        import threading
+        bundle = run_inference(PipelineConfig(
+            dataset="karate", k=2, hidden_dim=8, embed_dim=8,
+            classifier_hidden=8, serving_dir=str(tmp_path)),
+            device="cpu").serving_path
+        srv, state = cli.make_server(cli.build_parser().parse_args(
+            ["serve", "--device", "cpu", "--port", "0", "--bundle", bundle]))
+        thread = threading.Thread(target=srv.serve_forever,
+                                  kwargs={"poll_interval": 0.05},
+                                  daemon=True)
+        thread.start()
+        try:
+            argv += ["--port", str(srv.server_address[1]), "--queries",
+                     "50", "--concurrency", "2", "--json"]
+            out = subprocess.run(_serving_runner(argv), capture_output=True,
+                                 text=True, timeout=120, env=env, cwd=ROOT)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            state.close(30)
+            thread.join(30)
+        assert not thread.is_alive()
+        assert out.returncode == 0, out.stderr
+        row = json.loads(out.stdout[:out.stdout.rindex("\n{")])
+        assert row["queries"] == 50
+        assert sum(row["served_by_source"].values()) == 50
+    else:                           # replay, and the bare module
+        argv += TINY_EXPORT + ["--queries", "50", "--bundle-dir",
+                               str(tmp_path), "--json"]
+        out = subprocess.run(_serving_runner(argv), capture_output=True,
+                             text=True, timeout=120, env=env, cwd=ROOT)
+        assert out.returncode == 0, out.stderr
+        row = json.loads(out.stdout[:out.stdout.rindex("\n{")])
+        assert row["label_mismatches"] == 0 and row["device"] == "cpu"
+    assert _runner_result(out.stdout) == {"code": 0, "bad": []}
