@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN serving, GCN training, the paper's
 partitioner comparison, Proteins training, LM serving, the sync and stale
-training modes, the traced, checkpointed and profiled main path and the
-serving commands (``replay``, ``serve``, ``client``) on one NVIDIA GPU.
+training modes, the traced, checkpointed and profiled main path, the
+serving commands (``replay``, ``serve``, ``client``) and the kernel
+autotuner on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -151,7 +152,32 @@ Phases, each fatal on failure:
    ``StaleServingArtifact``; every TCP label equal to the offline key,
    the no-neighbour query degraded; more than one query per flush over
    the server's life (batching across connections); the server thread
-   joined within 10 s. Prints ms and qps of each step.
+   joined within 10 s. Prints ms and qps of each step;
+17. the kernel autotuner (``repro_torch.kernels.autotune``) at the main
+   path's bucket, ``n131072_e524288_f128`` (phase 5's partition, from the
+   cache): (a) each of its 20 candidates (kernel B at row tiles 32, 64 and
+   128, kernel A then cuBLAS, each at items 0, 16, 32, 64, 128) against
+   the plain version, the forward and the gradients in (h, W, b) at 3e-5
+   on the largest and the heaviest-padded partitions, and the row-tile
+   variants bitwise equal; (b) ``autotune`` on the 8 partitions' own
+   arcs: every candidate's ms (a layer's forward + backward over the 8,
+   device clock, median of 10) and spread, the winner (the fallback unless
+   a candidate beats it by more than the larger spread) and the
+   fallback's ms;
+   (c) a second call is a cache hit, and a subprocess resolves the same
+   winner from the cache file; (d) ``run_training`` at phase 5's
+   configuration with ``kernel_autotune``: its stage is a cache hit, its
+   report names the winner, the winner's kernels launch (kernel B for
+   ``cuda_fused``; kernel A and no kernel B for ``cuda``), test accuracy
+   within 0.01 of phase 5's, ms per epoch beside phase 5's (not gated);
+   (e) its bundle replayed (2,000 queries, 10% unseen) with 0 mismatches;
+   (f) kernel B at each row tile and kernel A over the reversed arcs at
+   each ``items`` on the 8 partitions: CUDA-event ms, device ms, bound.
+
+The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
+directory of its own, so no user cache reaches a phase: phases 1-16
+resolve the fallback (phase 5's report must name ``cuda_fused``, row tile
+64, items 0) and keep their launches.
 
 Kernels are held against their plain versions at 3e-5 (abs + rel). Where
 an output is a sum whose terms cancel (dot products, transposed sums, the
@@ -1254,7 +1280,9 @@ def proteins_on_card(dev):
     from repro_torch.gnn.train import mean_rocauc
     from repro_torch.kernels import ops
     from repro_torch.pipeline.datasets import get_dataset
-    from repro_torch.pipeline.pipeline import (PipelineConfig, run_inference,
+    from repro_torch.kernels import autotune as at
+    from repro_torch.pipeline.pipeline import (PipelineConfig,
+                                               PipelineReport, run_inference,
                                                run_training)
     from repro_torch.serving.store import classify
     ds = get_dataset("proteins-like")
@@ -1943,6 +1971,372 @@ def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
     return out, krow
 
 
+def tuned_grads(cfg, h, csr, inv, wm, b, g):
+    """Forward of one layer (no relu) under ``cfg`` and its gradients in
+    (h, W, b) for the cotangent ``g``."""
+    import torch
+    from repro_torch.kernels import ops
+    leaves = [x.detach().clone().requires_grad_() for x in (h, wm, b)]
+    out = ops.fused_gcn_layer(leaves[0], csr, inv, leaves[1], leaves[2],
+                              activate=False, config=cfg)
+    return [out.detach(), *torch.autograd.grad((out * g).sum(), leaves)]
+
+
+def candidates_against_plain(tens, cands, parts, dev):
+    """Phase 17 (a): every candidate, on each partition of ``parts``,
+    against the plain version: the forward and the gradients in (h, W, b)
+    at 3e-5 (abs + rel, "rel" against the same sums of absolute terms);
+    the row-tile variants of ``cuda_fused`` bitwise equal to the 64-row
+    one at each ``items``. Returns {candidate: max abs err}."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    gen = torch.Generator(device=dev).manual_seed(17)
+    errs = {at.cand_key(c): 0.0 for c in cands}
+    names = ("out", "dh", "dW", "db")
+    for q in parts:
+        csr = tens.csrs[q]
+        h = tens.features[q].contiguous()
+        inv = ops.inv_degree(tens.in_degree[q])
+        nn, f = h.shape
+        wm = torch.randn((f, f), generator=gen, device=dev) * 0.1
+        b = torch.randn((f,), generator=gen, device=dev) * 0.1
+        g = torch.randn((nn, f), generator=gen, device=dev)
+
+        def plain_run(xs, cot):
+            leaves = [x.detach().clone().requires_grad_() for x in xs]
+            out = plain.fused_gcn_reference(leaves[0], csr.src, csr.dst,
+                                            csr.weight, inv, leaves[1],
+                                            leaves[2], activate=False)
+            return [out.detach(),
+                    *torch.autograd.grad((out * cot).sum(), leaves)]
+        expect = plain_run((h, wm, b), g)
+        scale = plain_run((h.abs(), wm.abs(), b.abs()), g.abs())
+        fused64 = {}
+        for cfg in cands:
+            got = tuned_grads(cfg, h, csr, inv, wm, b, g)
+            key = at.cand_key(cfg)
+            for name, a, r, s in zip(names, got, expect, scale):
+                errs[key] = max(errs[key], max_err(
+                    a, r, s, f"candidate {key} {name} (partition {q})"))
+            if cfg.strategy == "cuda_fused":
+                first = fused64.setdefault(cfg.items, got)
+                check(all(torch.equal(x, y) for x, y in zip(first, got)),
+                      f"candidate {key} is not bitwise the 64-row tile's "
+                      f"result (partition {q})")
+        del expect, scale
+    return errs
+
+
+def tuned_kernel_rows(tens, dev, winner, launches):
+    """Phase 17 (f): kernel B (``need_agg``, the training forward) at each
+    row tile and kernel A over the reversed arcs (the backward's ``dh``)
+    at each ``items`` on the 8 main-path partitions: CUDA-event ms (median
+    of 10) by partition and their launch-weighted mean, device ms a call
+    on the largest partition (``torch.profiler``), the bound. Returns the
+    two ``kernels`` rows at the winner's knobs and the sweep."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import fused_layer as kernel_b
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.tools.kernel_turns import device_us as profiled
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = int(torch.argmax((tens.edge_weight > 0).sum(dim=1)))
+    f = tens.features.shape[-1]
+    w0 = torch.randn((f, f), generator=gen, device=dev) * 0.1
+    b0 = torch.randn((f,), generator=gen, device=dev) * 0.1
+    parts = []
+    for q in range(tens.k):
+        c = tens.csrs[q]
+        inv = ops.inv_degree(tens.in_degree[q])
+        rev_w = (c.weight * inv[c.dst.long()])[c.rev_perm].contiguous()
+        parts.append(dict(
+            c=c, h=tens.features[q].contiguous(), inv=inv, rev_w=rev_w,
+            rev_dst=c.src[c.rev_perm].contiguous(),
+            g=torch.randn(tens.features[q].shape, generator=gen, device=dev),
+            e_live=int((c.weight > 0).sum()),
+            rev_live=int((rev_w > 0).sum())))
+
+    def fused(d, nt, items):
+        c = d["c"]
+        return kernel_b.launch(d["h"], c.src, c.row_ptr, c.weight, d["inv"],
+                               w0, b0, need_agg=True, node_tile=nt,
+                               items=items)
+
+    def transpose(d, items):
+        c = d["c"]
+        return kernel_a.launch(d["g"], c.rev_src, c.rev_row_ptr, d["rev_w"],
+                               items=items)
+
+    def row_of(kind, knob, call, names, bound_fn, err_fn):
+        times = [time_ms(lambda d=d: call(d), iters=10) for d in parts]
+        us, n = profiled(lambda: call(parts[p]), names)
+        check(n > 0, f"{kind} {knob}: the profiler saw no launch")
+        bounds = [bound_fn(d) for d in parts]
+        return {"knob": knob, "launch_weighted_mean_ms":
+                statistics.mean(times), "per_partition_ms": times,
+                "device_ms": us * round(n) / 1e3,
+                "profiled_launches_per_call": n,
+                "bound_ms": statistics.mean(b for b, _ in bounds),
+                "bound_by": bounds[p][1], "max_abs_err": err_fn()}
+    nn = tens.features.shape[1]
+    e = tens.csrs[0].src.shape[0]
+    sweep = {"fused_gcn_layer_need_agg": {}, "csr_aggregate_transpose": {}}
+    d = parts[p]
+    c = d["c"]
+    agg_ref = plain.csr_aggregate_ref(d["h"], c.src, c.dst, c.weight, nn,
+                                      d["inv"])
+    out_ref = plain.gcn_epilogue(agg_ref, w0, b0, True)
+    out_abs = plain.gcn_epilogue(plain.csr_aggregate_ref(
+        d["h"].abs(), c.src, c.dst, c.weight, nn, d["inv"]), w0.abs(),
+        b0.abs(), False)
+    a_ref = kernel_a.plain(d["g"], c.rev_src, d["rev_dst"], d["rev_w"], nn)
+    a_abs = kernel_a.plain(d["g"].abs(), c.rev_src, d["rev_dst"],
+                           d["rev_w"], nn)
+    for nt in kernel_b.NODE_TILES:
+        sweep["fused_gcn_layer_need_agg"][nt] = row_of(
+            "kernel B", f"node_tile={nt}",
+            lambda d, nt=nt: fused(d, nt, winner.items),
+            ("fused_gcn_product", "csr_aggregate"),
+            lambda d: layer_bound(nn, f, f, e, d["e_live"], need_agg=True),
+            lambda nt=nt: max_err(fused(parts[p], nt, winner.items)[0],
+                                  out_ref, out_abs,
+                                  f"kernel B node_tile {nt}"))
+    for items in (0,) + at.ITEMS:
+        sweep["csr_aggregate_transpose"][items] = row_of(
+            "kernel A", f"items={items}", lambda d, k=items: transpose(d, k),
+            ("csr_aggregate",),
+            lambda d: transpose_bound(nn, f, e, d["rev_live"]),
+            lambda k=items: max_err(transpose(parts[p], k), a_ref, a_abs,
+                                    f"kernel A items {k}"))
+    for name, rows in sweep.items():
+        for knob, row in rows.items():
+            print(f"phase 17 {name} {row['knob']}: "
+                  f"{json.dumps({k: v for k, v in row.items() if k != 'knob'})}")
+    b_row = sweep["fused_gcn_layer_need_agg"][winner.node_tile]
+    a_row = sweep["csr_aggregate_transpose"][winner.items]
+    d = parts[p]
+    rows = []
+    for name, src, replaces, row, plain_fn, n_launch in (
+            ("fused_gcn_layer_tuned", "src/repro_torch/csrc/fused_layer.cu",
+             "src/repro/kernels/fused_layer.py:79", b_row,
+             lambda: plain.gcn_epilogue(plain.csr_aggregate_ref(
+                 d["h"], c.src, c.dst, c.weight, nn, d["inv"]), w0, b0,
+                 True), launches["fused_gcn_layer_need_agg"]),
+            ("csr_aggregate_transpose_tuned",
+             "src/repro_torch/csrc/csr_aggregate.cu",
+             "src/repro/kernels/csr_aggregate.py:148", a_row,
+             lambda: kernel_a.plain(d["g"], c.rev_src, d["rev_dst"],
+                                    d["rev_w"], nn),
+             launches["csr_aggregate"])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": src, "replaces": replaces,
+                     "config": winner.as_dict(), "launches": n_launch,
+                     "max_abs_err": row["max_abs_err"],
+                     "ms": row["launch_weighted_mean_ms"],
+                     "device_ms": row["device_ms"],
+                     "per_partition_ms": row["per_partition_ms"],
+                     "plain_ms": time_ms(plain_fn, iters=10),
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None,
+                     "shape": {"N": nn, "F": f, "E": e, "partitions":
+                               tens.k, "profiled_partition": p}})
+    library = library_csr(d["rev_dst"], c.rev_src, d["rev_w"], nn)
+    rows[1]["library_ms"] = time_ms(lambda: torch.sparse.mm(library,
+                                                            d["g"]),
+                                    iters=10)
+    return rows, sweep
+
+
+def autotune_on_card(dev, ds, cache_dir, phase5):
+    """Phase 17: the autotuner on the card at the main path's bucket
+    (phase 5's partition, from the artifact cache): (a) every candidate
+    against the plain version on the largest and the heaviest-padded
+    partitions; (b) ``autotune`` at the bucket on the partitions' own
+    arcs, every candidate's ms and spread, the winner beside the fallback; (c) a second call is a cache hit (``{}``
+    and one more ``autotune.cache_hits``), and a subprocess resolves the
+    same winner from the cache file; (d) ``run_training`` at phase 5's
+    configuration with ``kernel_autotune``: its stage is a cache hit, its
+    report names the winner, the winner's kernels launch, and its test
+    accuracy is within 0.01 of phase 5's; (e) its bundle replayed with 0
+    mismatches; (f) kernels B and A at each knob on the 8 partitions.
+    Returns (summary, kernels rows)."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import PartitionerSpec
+    from repro_torch.gnn.infer import gather_partition_tensors
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.pipeline.artifacts import PartitionArtifactStore
+    from repro_torch.pipeline.pipeline import (PipelineConfig,
+                                               PipelineReport, run_training)
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-tuned-",
+                                     dir=ROOT) as tmp:
+        tcfg = PipelineConfig(dataset="arxiv-like", k=8, scheme="repli",
+                              serving_dir=tmp, cache_dir=cache_dir,
+                              kernel_autotune=True,
+                              dataset_kwargs={"scale": ARXIV_SCALE})
+        bundle = PartitionArtifactStore(cache_dir).load_or_compute(
+            ds.graph, PartitionerSpec.parse(tcfg.method), tcfg.k, tcfg.seed,
+            tcfg.scheme)
+        check(bundle.labels_hit and bundle.batch_hit,
+              "phase 17: phase 5's partition is not in the artifact cache")
+        tens = gather_partition_tensors(ds, bundle.batch, dev)
+        n_pad, e_pad = bundle.batch.n_pad, bundle.batch.e_pad
+        f = int(ds.features.shape[1])
+        backend = at.backend_key(dev)
+        bucket = at.shape_bucket(n_pad, e_pad, f)
+        cands = at.candidate_space(bucket, backend)
+        print(f"phase 17: backend {backend}, bucket {bucket.key} (n_pad "
+              f"{n_pad}, e_pad {e_pad}, f {f}), {len(cands)} candidates",
+              flush=True)
+        check(bucket.key == "n131072_e524288_f128",
+              f"phase 17: the main path's bucket is {bucket.key}")
+        check(cands[0] == at.FALLBACK and 16 <= len(cands) <= 20,
+              f"phase 17: candidate space {cands}")
+        check(at.get_config(n_pad, e_pad, f, backend) == at.FALLBACK,
+              "phase 17: the bucket resolves a config before tuning")
+
+        # (a) correctness first
+        light = int(torch.argmax((tens.edge_weight > 0).sum(dim=1)))
+        heavy = int(torch.argmax((tens.edge_weight == 0).sum(dim=1)))
+        t0 = time.perf_counter()
+        errs = candidates_against_plain(tens, cands, sorted({light, heavy}),
+                                        dev)
+        out["correctness_s"] = time.perf_counter() - t0
+        out["max_abs_err"] = errs
+        print(f"phase 17 (a): every candidate within 3e-5 of the plain "
+              f"version on partitions {sorted({light, heavy})} "
+              f"(max abs err {max(errs.values()):.3e}), node tiles bitwise "
+              f"equal; {out['correctness_s']:.2f} s", flush=True)
+
+        # (b) tuning
+        hits = obs.counter("autotune.cache_hits")
+        measured_before = obs.counter("autotune.candidates_measured").value
+        t0 = time.perf_counter()
+        winner, measured = at.autotune(
+            n_pad, e_pad, f, backend, repeats=10,
+            graphs=zip(tens.csrs, tens.in_degree))
+        out["tune_s"] = time.perf_counter() - t0
+        with open(os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]) as fh:
+            entry = json.load(fh)["configs"][backend][bucket.key]
+        spread = entry["spread_ms"]
+        check(list(measured) == [at.cand_key(c) for c in cands]
+              and obs.counter("autotune.candidates_measured").value
+              - measured_before == len(cands),
+              f"phase 17: {len(measured)} of {len(cands)} candidates "
+              f"measured")
+        for key, ms in measured.items():
+            print(f"phase 17 (b) candidate {key}: {ms:.4f} ms (spread "
+                  f"{spread[key]:.4f})")
+        base = at.cand_key(at.FALLBACK)
+        fallback_ms = measured[base]
+        out.update(winner=winner.as_dict(), winner_ms=measured[
+            at.cand_key(winner)], fallback_ms=fallback_ms,
+            candidates=len(cands), measured_ms=measured, spread_ms=spread,
+            probe=entry["probe"])
+        print(f"phase 17 (b): winner {at.cand_key(winner)} "
+              f"{out['winner_ms']:.4f} ms, fallback {base} "
+              f"{fallback_ms:.4f} ms (spread {spread[base]:.4f}), "
+              f"{len(cands)} candidates in {out['tune_s']:.2f} s (fwd+bwd "
+              f"of the layer over the {tens.k} partitions, median of 10, "
+              f"device clock, launched ahead)", flush=True)
+        clear = {k: ms for k, ms in measured.items()
+                 if ms < fallback_ms - max(spread[base], spread[k])}
+        expect = min(clear, key=clear.get) if clear else base
+        check(entry["probe"] == "own graphs"
+              and at.cand_key(winner) == expect,
+              f"phase 17: the winner {at.cand_key(winner)} is not the "
+              f"fallback or the fastest clear win ({expect})")
+
+        # (c) the cache
+        before = hits.value
+        again, remeasured = at.autotune(n_pad, e_pad, f, backend)
+        check(again == winner and remeasured == {}
+              and hits.value == before + 1,
+              f"phase 17: the second call is not a cache hit ({again}, "
+              f"{len(remeasured)} measured, hits {before} -> {hits.value})")
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+                "from repro_torch.kernels.autotune import get_config; "
+                "print(json.dumps(get_config(*map(int, sys.argv[2:]))"
+                ".as_dict()))")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", code, os.path.join(ROOT, "src"),
+             str(n_pad), str(e_pad), str(f)], capture_output=True,
+            text=True, timeout=300, check=True, env=dict(os.environ))
+        resolved = json.loads(child.stdout.strip().splitlines()[-1])
+        print(f"phase 17 (c): second call a cache hit; a subprocess "
+              f"resolves {resolved} from "
+              f"{os.environ['REPRO_TORCH_AUTOTUNE_CACHE']} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        check(resolved == winner.as_dict(),
+              f"phase 17: the subprocess resolved {resolved}, not the "
+              f"winner {winner.as_dict()}")
+
+        # (d) training with the tuned config
+        before = hits.value
+        ops.reset_launch_counts()
+        tuned = run_training(tcfg, device=dev, ds=ds)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        report = PipelineReport.of(tcfg, tuned)
+        tt = tuned.timings
+        acc = tuned.accuracy
+        out.update(
+            ms_per_epoch=1e3 * tt["train_epochs"] / tcfg.epochs,
+            phase5_ms_per_epoch=phase5["ms_per_epoch"],
+            stage_s=tt.get("kernel_autotune"), accuracy=acc,
+            phase5_accuracy=phase5["accuracy"], launches=launches,
+            report_kernel=report.kernel)
+        print(f"phase 17 (d): {report.summary().splitlines()[5].strip()}; "
+              f"kernel_autotune stage {tt.get('kernel_autotune', 0):.4f} s; "
+              f"ms_per_epoch {out['ms_per_epoch']:.2f} (phase 5 "
+              f"{phase5['ms_per_epoch']:.2f}); test acc {acc['test']:.4f} "
+              f"(phase 5 {phase5['accuracy']['test']:.4f}); launches "
+              f"{json.dumps(launches)}", flush=True)
+        check("kernel_autotune" in tt and hits.value == before + 1,
+              f"phase 17: the training run's autotune stage was not one "
+              f"cache hit (hits {before} -> {hits.value})")
+        check(report.kernel == {f"f{f}": winner.as_dict()},
+              f"phase 17: report.kernel {report.kernel} does not name the "
+              f"winner")
+        if winner.strategy == "cuda_fused":
+            check(launches["fused_gcn_layer_need_agg"] > 0,
+                  f"phase 17: kernel B did not launch: {launches}")
+        else:
+            check(launches["fused_gcn_layer"] == 0
+                  and launches["csr_aggregate"] > 0,
+                  f"phase 17: the 'cuda' strategy's launches {launches}")
+        check(bool(np.isfinite(tuned.losses).all())
+              and abs(acc["test"] - phase5["accuracy"]["test"]) <= 0.01,
+              f"phase 17: tuned test accuracy {acc['test']} is not within "
+              f"0.01 of phase 5's {phase5['accuracy']['test']}")
+
+        # (e) serving the tuned bundle
+        row, _, _, _ = replay_trained_bundle(tuned, tcfg, dev, "phase 17")
+        out["replay"] = {k: row[k] for k in (
+            "label_mismatches", "known_queries", "throughput_qps",
+            "p50_ms", "p99_ms")}
+
+    # (f) kernels B and A at each knob
+    rows, sweep = tuned_kernel_rows(tens, dev, winner, launches)
+    out["sweep"] = {name: {str(k): {"ms": r["launch_weighted_mean_ms"],
+                                    "device_ms": r["device_ms"],
+                                    "bound_ms": r["bound_ms"]}
+                           for k, r in v.items()}
+                    for name, v in sweep.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['phase_s']:.1f} s wall", flush=True)
+    return out, rows
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1955,7 +2349,9 @@ def main():
     from repro_torch.kernels import csr_aggregate as kernel_a
     from repro_torch.kernels import fused_layer as kernel_b
     from repro_torch.kernels import ref as plain
-    from repro_torch.pipeline.pipeline import (PipelineConfig, run_inference,
+    from repro_torch.kernels import autotune as at
+    from repro_torch.pipeline.pipeline import (PipelineConfig,
+                                               PipelineReport, run_inference,
                                                run_training)
     from repro_torch.serving.inductive import aggregate_and_head
 
@@ -1966,6 +2362,13 @@ def main():
     # kernel path with its plain path; only attention may differ)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
+    # every phase reads and writes this run's own autotune cache: no user
+    # cache on the machine reaches a phase, and phases 1-16 resolve the
+    # fallback (kernel B at its 64-row tile, kernel A's shape rule)
+    tune_dir = tempfile.TemporaryDirectory(prefix="chip_smoke-autotune-",
+                                           dir=ROOT)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        tune_dir.name, "autotune_cache.json")
 
     # -- 1. the card ----------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2081,6 +2484,13 @@ def main():
         check(bool(np.isfinite(trained.losses).all())
               and bool(torch.isfinite(trained.embeddings).all()),
               "non-finite training loss or embeddings")
+        resolved = PipelineReport.of(tcfg, trained).kernel
+        print(f"train kernel configs: {json.dumps(resolved)}")
+        check(resolved and all(v == at.FALLBACK.as_dict()
+                               for v in resolved.values())
+              and result.kernel == resolved,
+              f"phases 3 and 5 do not resolve the fallback "
+              f"{at.FALLBACK.as_dict()}: {resolved}, {result.kernel}")
         check(np.isfinite(acc["test"]) and acc["test"] > 1 / 40
               and acc["test"] > seeded_acc,
               f"trained test accuracy {acc['test']} does not beat chance "
@@ -2322,9 +2732,16 @@ def main():
     torch.cuda.empty_cache()
     surface, surface_kernel = serving_surface(dev, main_cache.name, phase5,
                                               round(per_call["A"]))
+
+    # -- 17. the autotuner on the card ---------------------------------------
+    torch.cuda.empty_cache()
+    tuned, tuned_kernels = autotune_on_card(dev, main_ds, main_cache.name,
+                                            phase5)
     main_cache.cleanup()
+    tune_dir.cleanup()
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
+    kernels.extend(tuned_kernels)
     print("summary: " + json.dumps({
         "phase6": {k: {f: v[f] for f in ("loss_ratio", "table_ratio",
                                          "table_ratio_full")}
@@ -2339,7 +2756,11 @@ def main():
                      for m, r in frontier.items()},
         "phase15": traced,
         "phase16": {k: v for k, v in surface.items()
-                    if k in ("serve", "phase_s")}}))
+                    if k in ("serve", "phase_s")},
+        "phase17": {k: v for k, v in tuned.items() if k in (
+            "winner", "winner_ms", "fallback_ms", "candidates", "tune_s",
+            "stage_s", "ms_per_epoch", "phase5_ms_per_epoch", "accuracy",
+            "phase5_accuracy", "replay", "sweep", "phase_s")}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -34,13 +34,15 @@
 //      training check (20 epochs of AdamW) failed with it, as it does on
 //      the CPU with an f64-exact product (repro_torch/tools/
 //      product_rounding.py): that check holds the trajectory to one
-//      rounding order (ROADMAP.md, section C). Each block owns a 64-row x
-//      128-column output tile and walks k in chunks of 32: the chunk of
+//      rounding order (ROADMAP.md, section C). Each block owns a BM-row x
+//      128-column output tile (BM 32, 64 or 128, the autotuner's
+//      node_tile; 64 untuned) and walks k in chunks of 32: the chunk of
 //      agg rows and of W is copied to shared memory by cp.async (16-byte
 //      copies) into one of two buffers while the other is multiplied, so
-//      shared memory (50 KB) does not grow with F. Each thread owns 4 rows
-//      x 8 columns, reading both operands as 16-byte vectors; bias and relu
-//      as the outputs are written.
+//      shared memory (41, 50 or 68 KB) does not grow with F. Each thread
+//      owns 4 rows x 8 columns (128, 256 or 512 threads a block), reading
+//      both operands as 16-byte vectors; bias and relu as the outputs are
+//      written.
 // Ragged N, F and FO are masked (zero-filled in shared memory).
 #include <cuda_runtime.h>
 
@@ -48,16 +50,24 @@
 
 namespace {
 
-constexpr int kBM = 64;         // rows per tile
+// The row tile BM is a template parameter (32, 64 or 128; the autotuner's
+// node_tile, repro_torch/kernels/autotune.py). Each output element is summed
+// over k in order whatever the tile, so every tile gives bitwise the same
+// result; the tile sets the block's threads and shared memory only.
 constexpr int kBN = 128;        // output columns per tile (W chunk stride)
 constexpr int kBK = 32;         // k per chunk
 constexpr int kTR = 4;          // rows per thread (and 8 columns)
-constexpr int kThreads = 16 * (kBM / kTR);
 // agg chunk row stride, 4 (mod 8) words: the two rows a warp reads at once,
 // 4 apart, fall in disjoint banks
 constexpr int kLda = kBK + 4;
-constexpr int kStage = kBM * kLda + kBK * kBN;   // floats per buffer
-constexpr int kSmemBytes = 2 * kStage * static_cast<int>(sizeof(float));
+
+template <int BM>
+struct Tile {
+  static constexpr int kThreads = 16 * (BM / kTR);
+  static constexpr int kStage = BM * kLda + kBK * kBN;   // floats per buffer
+  static constexpr int kSmemBytes =
+      2 * kStage * static_cast<int>(sizeof(float));
+};
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -73,7 +83,9 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 
 // dst[r][c] = src[row0 + r][col0 + c] for r < rows, c < cols, zero where
 // row0 + r >= src_rows or col0 + c >= src_cols; 16-byte copies when the
-// source rows allow them. The caller commits the cp.async group.
+// source rows allow them, over the block's kThreads threads. The caller
+// commits the cp.async group.
+template <int kThreads>
 __device__ __forceinline__ void stage(float* __restrict__ dst, int ld,
                                       const float* __restrict__ src,
                                       int src_ld, int src_rows, int src_cols,
@@ -110,26 +122,30 @@ __device__ __forceinline__ void stage(float* __restrict__ dst, int ld,
 }
 
 // Buffer `buf` <- k-chunk k0: agg[row0.., k0..k0+kBK) and W[k0.., n0..].
+template <int BM>
 __device__ __forceinline__ void stage_chunk(float* __restrict__ buf,
                                             const float* __restrict__ agg,
                                             const float* __restrict__ wmat,
                                             int n, int f, int fo, int row0,
                                             int n0, int k0) {
-  stage(buf, kLda, agg, f, n, f, row0, k0, kBM, kBK);
-  stage(buf + kBM * kLda, kBN, wmat, fo, f, fo, k0, n0, kBK, kBN);
+  constexpr int kThreads = Tile<BM>::kThreads;
+  stage<kThreads>(buf, kLda, agg, f, n, f, row0, k0, BM, kBK);
+  stage<kThreads>(buf + BM * kLda, kBN, wmat, fo, f, fo, k0, n0, kBK, kBN);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // grid (row tiles, column tiles)
-__global__ void __launch_bounds__(kThreads)
+template <int BM>
+__global__ void __launch_bounds__(Tile<BM>::kThreads)
 fused_gcn_product(const float* __restrict__ agg,
                   const float* __restrict__ wmat, const float* __restrict__ b,
                   float* __restrict__ out, int n, int f, int fo,
                   int activate) {
+  constexpr int kStage = Tile<BM>::kStage;
   extern __shared__ float smem[];
   const int tx = threadIdx.x % 16;           // columns 4tx.., 64 + 4tx..
   const int ty = threadIdx.x / 16;           // rows kTR*ty..
-  const int row0 = blockIdx.x * kBM;
+  const int row0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kBN;
   const int chunks = (f + kBK - 1) / kBK;
 
@@ -139,13 +155,13 @@ fused_gcn_product(const float* __restrict__ agg,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  if (chunks > 0) stage_chunk(smem, agg, wmat, n, f, fo, row0, n0, 0);
+  if (chunks > 0) stage_chunk<BM>(smem, agg, wmat, n, f, fo, row0, n0, 0);
   for (int c = 0; c < chunks; ++c) {
     const float* atile = smem + (c & 1) * kStage;
-    const float* wtile = atile + kBM * kLda;
+    const float* wtile = atile + BM * kLda;
     if (c + 1 < chunks) {
-      stage_chunk(smem + ((c + 1) & 1) * kStage, agg, wmat, n, f, fo, row0,
-                  n0, (c + 1) * kBK);
+      stage_chunk<BM>(smem + ((c + 1) & 1) * kStage, agg, wmat, n, f, fo,
+                      row0, n0, (c + 1) * kBK);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -213,29 +229,51 @@ extern "C" const char* fused_gcn_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out [n,fo] = act(agg [n,f] @ wmat [f,fo] + b [fo]); f32, contiguous, on
-// the device. Returns the first CUDA error.
-extern "C" int fused_gcn_product_f32(const float* agg, const float* wmat,
-                                     const float* b, float* out, int n,
-                                     int f, int fo, int activate,
-                                     void* stream) {
-  if (n <= 0 || fo <= 0) return static_cast<int>(cudaGetLastError());
-  // above 48 KB a kernel must ask for its dynamic shared memory, once per
-  // device (the call costs more host time than the launch)
+namespace {
+
+// One row tile's launch. Above 48 KB a kernel must ask for its dynamic
+// shared memory, once per device and instantiation (the call costs more
+// host time than the launch).
+template <int BM>
+int launch_product(const float* agg, const float* wmat, const float* b,
+                   float* out, int n, int f, int fo, int activate,
+                   cudaStream_t stream) {
   constexpr int kDevices = 64;
   static bool ready[kDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess && !(device < kDevices && ready[device])) {
-    err = cudaFuncSetAttribute(fused_gcn_product,
+    err = cudaFuncSetAttribute(fused_gcn_product<BM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+                               Tile<BM>::kSmemBytes);
     if (err == cudaSuccess && device < kDevices) ready[device] = true;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kBM - 1) / kBM, (fo + kBN - 1) / kBN);
-  fused_gcn_product<<<grid, kThreads, kSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      agg, wmat, b, out, n, f, fo, activate);
+  const dim3 grid((n + BM - 1) / BM, (fo + kBN - 1) / kBN);
+  fused_gcn_product<BM><<<grid, Tile<BM>::kThreads, Tile<BM>::kSmemBytes,
+                          stream>>>(agg, wmat, b, out, n, f, fo, activate);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out [n,fo] = act(agg [n,f] @ wmat [f,fo] + b [fo]); f32, contiguous, on
+// the device; bm is the row tile, 32, 64 or 128. Returns the first CUDA
+// error.
+extern "C" int fused_gcn_product_f32(const float* agg, const float* wmat,
+                                     const float* b, float* out, int n,
+                                     int f, int fo, int activate, int bm,
+                                     void* stream) {
+  if (n <= 0 || fo <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 32:
+      return launch_product<32>(agg, wmat, b, out, n, f, fo, activate, s);
+    case 64:
+      return launch_product<64>(agg, wmat, b, out, n, f, fo, activate, s);
+    case 128:
+      return launch_product<128>(agg, wmat, b, out, n, f, fo, activate, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -5,7 +5,8 @@ rows are the destination nodes. The kernel is ``csrc/csr_aggregate.cu``
 (two launches: a merge-path gather in which each warp walks at most
 ``split(n, e).items`` merged row ends and arcs, then a pass that adds the
 partial sums of rows spanning warps; :func:`split` sizes both from the
-shapes alone, so no launch reads anything back to the host);
+shapes alone, or from the autotuner's ``items``, so no launch reads
+anything back to the host);
 its plain version is :func:`repro_torch.kernels.ref.csr_aggregate_ref`
 (re-exported here as ``plain``). :func:`aggregate` dispatches: CPU tensors
 go to the plain version, CUDA tensors to :func:`launch`.
@@ -28,7 +29,7 @@ from .edge_dot import edge_dot
 from .ref import csr_aggregate_ref as plain
 
 __all__ = ["AggregateFn", "Split", "aggregate", "transpose", "launch",
-           "launch_into", "plain", "launches", "split", "scratch"]
+           "launch_into", "plain", "launches", "split", "scratch", "ITEMS"]
 
 #: Kernel calls since the last reset (see ``ops.reset_launch_counts``).
 launches = 0
@@ -39,6 +40,9 @@ launches = 0
 TARGET_WARPS = 2048
 MIN_ITEMS = 16
 MAX_ITEMS = 128
+#: The tuned splits the autotuner sweeps (``KernelConfig.items``; 0 there
+#: is the rule above). ``MAX_ITEMS`` is ``csr_rows.cuh``'s ``kMaxItems``.
+ITEMS = (16, 32, 64, MAX_ITEMS)
 
 _lib_cache = None
 
@@ -50,10 +54,15 @@ class Split(NamedTuple):
     warps: int
 
 
-def split(n: int, e: int) -> Split:
-    """The work split of an ``n``-row, ``e``-arc CSR (shapes only)."""
+def split(n: int, e: int, items: int = 0) -> Split:
+    """The work split of an ``n``-row, ``e``-arc CSR: ``items`` merged items
+    per warp (a tuned ``KernelConfig.items``), or with 0 the shape rule."""
     total = n + e
-    items = min(MAX_ITEMS, max(MIN_ITEMS, -(-total // TARGET_WARPS)))
+    if items == 0:
+        items = min(MAX_ITEMS, max(MIN_ITEMS, -(-total // TARGET_WARPS)))
+    elif not 1 <= items <= MAX_ITEMS:
+        raise ValueError(f"items must be 0 or in [1, {MAX_ITEMS}], "
+                         f"got {items}")
     return Split(items, -(-total // items))
 
 
@@ -83,23 +92,25 @@ def _lib():
 
 
 def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
-           weight: torch.Tensor,
-           inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           weight: torch.Tensor, inv_scale: Optional[torch.Tensor] = None,
+           items: int = 0) -> torch.Tensor:
     """Run the CUDA kernel; returns ``out`` [N, F] f32.
 
     ``src``/``weight`` are the arcs sorted by destination and ``row_ptr``
-    [N+1] int32 their row offsets (``ops.to_csr`` builds all three).
+    [N+1] int32 their row offsets (``ops.to_csr`` builds all three);
+    ``items`` is the split's items per warp (0: :func:`split`'s rule).
     """
     global launches
     out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
-    launch_into(out, h, src, row_ptr, weight, inv_scale)
+    launch_into(out, h, src, row_ptr, weight, inv_scale, items)
     launches += 1
     return out
 
 
 def launch_into(out: torch.Tensor, h: torch.Tensor, src: torch.Tensor,
                 row_ptr: torch.Tensor, weight: torch.Tensor,
-                inv_scale: Optional[torch.Tensor] = None) -> None:
+                inv_scale: Optional[torch.Tensor] = None,
+                items: int = 0) -> None:
     """:func:`launch` writing into ``out`` [N, F] f32, without counting a
     call: kernel B's wrapper fills its aggregate with it."""
     device = h.device
@@ -117,7 +128,7 @@ def launch_into(out: torch.Tensor, h: torch.Tensor, src: torch.Tensor,
     if inv_scale is not None:
         check_tensor("inv_scale", inv_scale, torch.float32, (n,), device)
     check_tensor("out", out, torch.float32, (n, f), device)
-    sp = split(n, e)
+    sp = split(n, e, items)
     buf, parts = scratch(sp, f, device)     # buf lives past the launch
     lib = _lib()
     with torch.cuda.device(device):
@@ -134,15 +145,18 @@ def launch_into(out: torch.Tensor, h: torch.Tensor, src: torch.Tensor,
 
 def aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               row_ptr: torch.Tensor, weight: torch.Tensor,
-              inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+              inv_scale: Optional[torch.Tensor] = None,
+              items: int = 0) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel (split by ``items``)
+    for a CUDA one."""
     if h.device.type == "cpu":
         return plain(h, src, dst, weight, h.shape[0], inv_scale)
-    return launch(h, src, row_ptr, weight, inv_scale)
+    return launch(h, src, row_ptr, weight, inv_scale, items)
 
 
 def transpose(g: torch.Tensor, csr, weight: torch.Tensor,
-              inv_scale: Optional[torch.Tensor]) -> torch.Tensor:
+              inv_scale: Optional[torch.Tensor],
+              items: int = 0) -> torch.Tensor:
     """``dh = Aᵀ·diag(inv)·g``: the aggregation over the reversed arcs of
     ``csr`` (rows are source nodes), with the normalisation folded into the
     reversed weights ``w[e]·inv[dst[e]]`` and no epilogue.
@@ -153,7 +167,7 @@ def transpose(g: torch.Tensor, csr, weight: torch.Tensor,
         weight * inv_scale.index_select(0, csr.dst.long())
     rev_w = w.index_select(0, csr.rev_perm).contiguous()
     return aggregate(g.contiguous(), csr.rev_src, csr.rev_dst,
-                     csr.rev_row_ptr, rev_w)
+                     csr.rev_row_ptr, rev_w, items=items)
 
 
 class AggregateFn(torch.autograd.Function):
@@ -161,21 +175,25 @@ class AggregateFn(torch.autograd.Function):
 
     ``weight`` is the CSR-ordered arc weight, passed on its own so autograd
     sees it; ``csr`` carries the index arrays (forward and reversed) and
-    ``inv_scale`` gets no gradient, as in the reference."""
+    ``inv_scale`` gets no gradient, as in the reference. ``config`` (a
+    resolved :class:`repro_torch.kernels.autotune.KernelConfig`, kept on
+    ``ctx``) gives the split of the forward and of the backward's
+    transposed aggregation alike."""
 
     @staticmethod
-    def forward(ctx, h, weight, csr, inv_scale):
-        ctx.csr = csr
+    def forward(ctx, h, weight, csr, inv_scale, config):
+        ctx.csr, ctx.config = csr, config
         ctx.save_for_backward(h, weight, inv_scale)
-        return aggregate(h, csr.src, csr.dst, csr.row_ptr, weight, inv_scale)
+        return aggregate(h, csr.src, csr.dst, csr.row_ptr, weight, inv_scale,
+                         config.items)
 
     @staticmethod
     def backward(ctx, g):
         h, weight, inv = ctx.saved_tensors
         csr = ctx.csr
         g = g.float().contiguous()
-        dh = transpose(g, csr, weight, inv) if ctx.needs_input_grad[0] \
-            else None
+        dh = transpose(g, csr, weight, inv, ctx.config.items) \
+            if ctx.needs_input_grad[0] else None
         dw = edge_dot(h, g, csr.src, csr.dst, inv) \
             if ctx.needs_input_grad[1] else None
-        return dh, dw, None, None
+        return dh, dw, None, None, None

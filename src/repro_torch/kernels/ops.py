@@ -17,7 +17,13 @@ caller may hand over unsorted arcs), then takes ``row_ptr`` with
 read (the same arcs sorted stably by source, with their own row offsets),
 so a graph's CSR is built once and serves every layer of every epoch.
 
-``csr_aggregate`` and ``fused_gcn_layer`` go through the kernels'
+``csr_aggregate`` and ``fused_gcn_layer`` dispatch on a
+:class:`repro_torch.kernels.autotune.KernelConfig` (None: the fallback of
+the tensors' device), as the reference's ``ops`` does on its strategies:
+``"cuda_fused"`` is kernel B, ``"cuda"`` kernel A then ``torch.matmul``,
+``"torch"`` the plain versions, which a CUDA tensor never takes (it
+raises ``ValueError``). On a CPU tensor every strategy is its plain
+composition. They go through the kernels'
 ``autograd.Function``s when autograd records (a tensor they take requires
 a gradient); otherwise they call the forward directly, so inference writes
 no aggregate and saves nothing. The arc weights they differentiate are
@@ -30,6 +36,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from . import autotune as _autotune
 from . import csr_aggregate as _agg
 from . import edge_dot as _edge_dot
 from . import exchange as _exchange
@@ -109,29 +116,59 @@ def _records_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _resolve(config: Optional[_autotune.KernelConfig],
+             h: torch.Tensor) -> _autotune.KernelConfig:
+    """``config``, or the fallback of ``h``'s device; a CUDA tensor under
+    the ``"torch"`` strategy raises (the card has no plain path)."""
+    if config is None:
+        return _autotune.fallback_config(h.device)
+    if config.strategy == "torch" and h.device.type == "cuda":
+        raise ValueError("the 'torch' strategy (the plain versions) does "
+                         "not run on CUDA tensors; the card runs the "
+                         "kernels ('cuda_fused' or 'cuda')")
+    return config
+
+
 def csr_aggregate(h: torch.Tensor, csr: Csr,
-                  inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[d] = inv[d] * Σ_{dst[e]=d} w[e]·h[src[e]]`` — kernel A.
+                  inv_scale: Optional[torch.Tensor] = None,
+                  config: Optional[_autotune.KernelConfig] = None
+                  ) -> torch.Tensor:
+    """``out[d] = inv[d] * Σ_{dst[e]=d} w[e]·h[src[e]]`` — kernel A, split
+    by ``config.items`` under both CUDA strategies.
 
     Differentiable in ``h`` and ``csr.weight``."""
     _check_rows(h, csr)
+    config = _resolve(config, h)
     if _records_grad(h, csr.weight):
-        return _agg.AggregateFn.apply(h, csr.weight, csr, inv_scale)
+        return _agg.AggregateFn.apply(h, csr.weight, csr, inv_scale, config)
     return _agg.aggregate(h, csr.src, csr.dst, csr.row_ptr, csr.weight,
-                          inv_scale)
+                          inv_scale, config.items)
 
 
 def fused_gcn_layer(h: torch.Tensor, csr: Csr,
                     inv_scale: Optional[torch.Tensor], w: torch.Tensor,
-                    b: torch.Tensor, activate: bool = True) -> torch.Tensor:
-    """``act((inv ⊙ A·h) @ w + b)`` in one launch — kernel B.
+                    b: torch.Tensor, activate: bool = True,
+                    config: Optional[_autotune.KernelConfig] = None
+                    ) -> torch.Tensor:
+    """``act((inv ⊙ A·h) @ w + b)``: kernel B under ``"cuda_fused"`` (and
+    its plain version under ``"torch"``), kernel A then ``torch.matmul``
+    under ``"cuda"``.
 
     Differentiable in ``h``, ``csr.weight``, ``w`` and ``b``."""
     _check_rows(h, csr)
+    config = _resolve(config, h)
+    if config.strategy == "cuda":
+        # the reference's "pallas": the product outside the kernel, as XLA
+        # computes it there; f32 in full (TF32 stays off, PyTorch's default
+        # for matmul)
+        agg = csr_aggregate(h, csr, inv_scale, config)
+        z = agg @ w.float() + b.float()[None, :]
+        return torch.relu(z) if activate else z
     if _records_grad(h, csr.weight, w, b):
         return _fused.FusedLayerFn.apply(h, csr.weight, w, b, csr, inv_scale,
-                                         activate)
-    return _fused.fused(h, csr, csr.weight, inv_scale, w, b, activate)[0]
+                                         activate, config)
+    return _fused.fused(h, csr, csr.weight, inv_scale, w, b, activate,
+                        config=config)[0]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -26,8 +26,14 @@ reference's Chrome trace document (``python -m repro_torch.obs summarize
 PATH``, or the reference's ``python -m repro.obs``); ``--torch-profile
 DIR`` runs ``torch.profiler`` over the training stage (the reference's
 ``--jax-profile``); ``--checkpoint-dir DIR`` saves the trained parameters
-in the reference's checkpoint layout. The flags are the reference CLI's
-that the ported modes read; ``--device`` defaults to ``cuda``.
+in the reference's checkpoint layout. ``--kernel-autotune`` tunes the
+kernels' strategy and knobs for the run's shape buckets before training
+and caches the winners (``REPRO_TORCH_AUTOTUNE_CACHE``, default
+``~/.cache/repro_torch/autotune_cache.json``); on the CPU the one
+candidate is the plain versions, and nothing is measured. There is no
+``--use-kernel``: on the card the layers always run the kernels. The flags
+are the reference CLI's that the ported modes read; ``--device`` defaults
+to ``cuda``.
 """
 from __future__ import annotations
 
@@ -77,6 +83,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="aggregate the k partition models before "
                           "embedding assembly")
     run.add_argument("--model", default="gcn", choices=["gcn", "sage"])
+    run.add_argument("--kernel-autotune", action="store_true",
+                     help="sweep the kernels' strategy and knobs (kernel "
+                          "B's row tile, kernel A's split) for this run's "
+                          "shape buckets before training and cache the "
+                          "winners on disk (REPRO_TORCH_AUTOTUNE_CACHE); on "
+                          "the CPU the plain versions are the one candidate")
     run.add_argument("--hidden-dim", type=int, default=128)
     run.add_argument("--embed-dim", type=int, default=128)
     run.add_argument("--num-layers", type=int, default=3)
@@ -213,6 +225,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         cache_dir=None if args.no_cache else args.cache_dir,
         checkpoint_dir=args.checkpoint_dir,
         torch_profile_dir=args.torch_profile,
+        kernel_autotune=args.kernel_autotune,
         dataset_kwargs=dataset_kwargs)
     result = run_training(cfg, device=args.device)
     report = PipelineReport.of(cfg, result)

@@ -17,6 +17,14 @@ on the Repli assembly, whatever ``scheme`` says, and the report carries
 the reference's collective bytes of the step. :func:`run_inference` runs
 the same stages with seeded (or handed-in) parameters and no training.
 
+Every layer resolves its kernel config from
+:mod:`repro_torch.kernels.autotune` per call (the report's ``kernel``
+gives the config of each layer input width at the run's padded partition
+shape). ``kernel_autotune`` adds the reference's ``kernel_autotune``
+stage, which tunes those buckets (or hits the cache) before training. The
+reference's ``use_kernel`` has no counterpart: on the card the layers
+always run the kernels, on the CPU their plain versions.
+
 Both time every stage on the host clock, each ending in a device
 synchronize, and run it inside a :mod:`repro_torch.obs` span under the
 reference's names (``pipeline.total``, ``pipeline.dataset``,
@@ -52,6 +60,8 @@ from repro_torch.gnn.model import GNNConfig, init_mlp
 from repro_torch.gnn.halo import (exchange_collective_bytes, train_stale,
                                   train_sync)
 from repro_torch.gnn.train import train_classifier, train_local
+from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import autotune, backend_key, get_config
 
 from .artifacts import (ArtifactBundle, PartitionArtifactStore,
                         compute_bundle)
@@ -95,6 +105,8 @@ class PipelineConfig:
     serving_dir: Optional[str] = None   # export a serving bundle here
     torch_profile_dir: Optional[str] = None     # torch.profiler over the
                                                 # train stage, written here
+    kernel_autotune: bool = False   # tune the layers' kernel buckets (or
+                                    # hit the cache) before training
     dataset_kwargs: Mapping[str, Any] = dataclasses.field(
         default_factory=dict)
 
@@ -122,6 +134,8 @@ class PipelineResult:
     serving_path: Optional[str] = None
     checkpoint_path: Optional[str] = None
     profile_path: Optional[str] = None    # the torch.profiler trace
+    kernel: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)       # "f<width>" -> KernelConfig.as_dict()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +158,9 @@ class PipelineReport:
     partition_fingerprint: str
     serving_path: Optional[str] = None
     checkpoint_path: Optional[str] = None
+    kernel: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)       # the resolved config per layer input
+                                    # width, "f<width>" -> as_dict()
 
     @classmethod
     def of(cls, cfg: PipelineConfig, result: PipelineResult
@@ -168,7 +185,8 @@ class PipelineReport:
             timings={k: round(v, 4) for k, v in result.timings.items()},
             partition_fingerprint=result.spec.fingerprint(),
             serving_path=result.serving_path,
-            checkpoint_path=result.checkpoint_path)
+            checkpoint_path=result.checkpoint_path,
+            kernel={k: dict(v) for k, v in result.kernel.items()})
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -180,6 +198,8 @@ class PipelineReport:
         mode = c["mode"]
         if mode == "stale":
             mode = f"stale(period={c['sync_period'] or '∞'})"
+        agg = "kernel[" + ",".join(sorted(
+            {v["strategy"] for v in self.kernel.values()})) + "]"
         lines = ["PipelineReport",
                  f"  dataset      {self.dataset} (n={self.num_nodes}, "
                  f"edges={self.num_edges})",
@@ -196,7 +216,7 @@ class PipelineReport:
                  f"e_pad={self.shapes['e_pad']} [cache {bhit}]",
                  f"  training     mode={mode} model={c['model']} "
                  f"layers={c['num_layers']} epochs={c['epochs']} "
-                 f"device={self.device}"]
+                 f"aggregation={agg} device={self.device}"]
         if c["integrate"] != "none":
             lines.append(f"  integration  {c['integrate']} over "
                          f"k={c['k']} partition models (pre-assembly)")
@@ -312,6 +332,50 @@ def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
     return ds, bundle, report, gnn
 
 
+def _kernel_configs(cfg: PipelineConfig, gnn: GNNConfig,
+                    batch: PartitionBatch,
+                    tensors: Optional[PartitionTensors], stage: _Stages
+                    ) -> Dict[str, Dict[str, Any]]:
+    """The reference's ``kernel_autotune`` stage and report field: one
+    bucket per distinct layer input width at the run's padded partition
+    shape, tuned (or a cache hit) when ``cfg.kernel_autotune`` is set, on
+    the run's own partitions (every partition's CSR: an epoch's arcs);
+    returns the config each width resolves, ``{"f<width>": as_dict()}``."""
+    n_pad, e_pad = batch.n_pad, batch.e_pad
+    widths = sorted({gnn.feature_dim, gnn.hidden_dim})
+    backend = backend_key(stage.device)
+    if cfg.kernel_autotune:
+        with stage.span("kernel_autotune", widths=widths):
+            for width in widths:
+                chosen, measured = autotune(
+                    n_pad, e_pad, width, backend,
+                    graphs=_partition_graphs(batch, tensors, stage.device))
+                log.info("kernel autotune f=%d -> %s (%d candidates)",
+                         width, chosen, len(measured))
+    return {f"f{width}": get_config(n_pad, e_pad, width, backend).as_dict()
+            for width in widths}
+
+
+def _partition_graphs(batch: PartitionBatch,
+                      tensors: Optional[PartitionTensors], device):
+    """Every partition's ``(csr, in_degree)``, from ``tensors`` or (a
+    low-memory run) built from the batch; lazy, so that a bucket with one
+    candidate builds nothing."""
+    if tensors is not None:
+        yield from zip(tensors.csrs, tensors.in_degree)
+        return
+
+    def dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device=device,
+                                                           dtype=dtype)
+    for p in range(batch.k):
+        yield (ops.to_csr(dev(batch.edge_src[p], torch.int32),
+                          dev(batch.edge_dst[p], torch.int32),
+                          dev(batch.edge_weight[p], torch.float32),
+                          batch.n_pad),
+               dev(batch.in_degree[p], torch.float32))
+
+
 def _finish(cfg: PipelineConfig, stage: _Stages,
             result: PipelineResult) -> PipelineResult:
     from repro_torch.serving.store import classify, export_from_pipeline
@@ -364,6 +428,7 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
     if classifier is None:
         classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
                               ds.num_classes, device)
+    kernel = _kernel_configs(cfg, gnn, batch, tensors, stage)
     profiler = obs.profiler_session(cfg.torch_profile_dir)
 
     def train():
@@ -403,7 +468,7 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
         embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
         timings={}, accuracy=accuracy, losses=trained.losses,
         exchanges=trained.exchanges, collectives=collectives,
-        profile_path=profiler.path)
+        profile_path=profiler.path, kernel=kernel)
     if cfg.checkpoint_dir:
         result.checkpoint_path = stage("checkpoint", lambda: save_checkpoint(
             cfg.checkpoint_dir, cfg.epochs, trained.params))
@@ -440,6 +505,7 @@ def _infer(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
     if classifier is None:
         classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
                               ds.num_classes, device)
+    kernel = _kernel_configs(cfg, gnn, batch, tensors, stage)
     emb = stage("embed", lambda: compute_embeddings(params, gnn, tensors))
     pooled = stage("pool", lambda: pool_embeddings(emb, tensors, ds.graph.n))
     del emb
@@ -447,5 +513,5 @@ def _infer(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
         dataset=ds, labels=bundle.labels, batch=batch, spec=spec,
         bundle=bundle, partition=report, tensors=tensors, gnn=gnn,
         params=params, classifier=classifier, embeddings=pooled,
-        predictions=np.zeros(0, np.int32), timings={})
+        predictions=np.zeros(0, np.int32), timings={}, kernel=kernel)
     return _finish(cfg, stage, result)

@@ -128,7 +128,8 @@ class ContinuousBatcher:
 
     def warmup(self) -> int:
         """Run the classifier and every inductive bucket once (allocator,
-        library handles, star graphs); returns the number of buckets."""
+        library handles, star graphs, each bucket's kernel config);
+        returns the number of buckets."""
         e = self.store.embed_dim
         buckets = bucket_sizes(self.max_batch)
         for b in buckets:

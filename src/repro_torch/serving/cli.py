@@ -263,7 +263,8 @@ class ServingState:
 
     Handler threads only submit and wait; every ``pump`` (all device work)
     runs in the one pump thread, and every batcher call is made under
-    ``lock``."""
+    ``lock``. Each handler thread registers its connection, so that
+    :meth:`close` can end the connections and wait for their threads."""
 
     def __init__(self, store, batcher):
         self.store = store
@@ -276,6 +277,16 @@ class ServingState:
         self.warm_buckets = 0
         self.pump_thread = threading.Thread(target=self.pump_loop,
                                             name="serving-pump", daemon=True)
+        # handler thread -> its connection (finished threads are dropped
+        # as new connections arrive)
+        self.connections: Dict[threading.Thread, socket.socket] = {}
+
+    def add_connection(self, conn: socket.socket) -> None:
+        """Register the calling handler thread and its connection."""
+        with self.lock:
+            self.connections = {t: c for t, c in self.connections.items()
+                                if t.is_alive()}
+            self.connections[threading.current_thread()] = conn
 
     def submit_and_wait(self, node: int, neighbors, timeout: float = 60.0):
         ev = threading.Event()
@@ -317,14 +328,30 @@ class ServingState:
             self.closing.wait(tick)
 
     def close(self, timeout: float = 10.0) -> None:
-        """Stop the pump thread and wait for it (at most ``timeout`` s)."""
+        """Stop the pump thread, end every open connection (its handler
+        reads end of file) and wait for the pump and the handler threads
+        (at most ``timeout`` s in all): none of them is left running while
+        the interpreter exits, which can abort the process."""
         self.closing.set()
-        if self.pump_thread.is_alive():
-            self.pump_thread.join(timeout)
+        with self.lock:
+            connections = dict(self.connections)
+        for conn in connections.values():
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:             # already closed by its handler
+                pass
+        deadline = time.monotonic() + timeout
+        for thread in [self.pump_thread, *connections]:
+            if thread.is_alive():
+                thread.join(max(deadline - time.monotonic(), 0.0))
 
 
 class _Handler(socketserver.StreamRequestHandler):
     """One connection: JSON requests in, one JSON reply line each."""
+
+    def setup(self):
+        super().setup()
+        self.server.state.add_connection(self.connection)
 
     def handle(self):
         state: ServingState = self.server.state
@@ -392,11 +419,11 @@ def make_server(args) -> Tuple[socketserver.ThreadingTCPServer,
 def cmd_serve(args) -> int:
     srv, state = make_server(args)
     host, port = srv.server_address[:2]
-    print(f"serving {state.store.summary()}")
-    print(f"listening on {host}:{port} (warmup ran {state.warm_buckets} "
-          f"bucket shapes; ctrl-c to stop)")
-    sys.stdout.flush()
-    try:
+    try:                    # a ctrl-c as soon as the port is printed closes
+        print(f"serving {state.store.summary()}")   # the server too
+        print(f"listening on {host}:{port} (warmup ran "
+              f"{state.warm_buckets} bucket shapes; ctrl-c to stop)")
+        sys.stdout.flush()
         srv.serve_forever(poll_interval=0.2)
     except KeyboardInterrupt:
         pass

@@ -11,9 +11,13 @@ neighbours. The serving layer
    neighbour with weight 1;
 3. runs the owning partition's head on the aggregate.
 
-Shapes are fixed per flush bucket (``[B * (1 + M)]`` rows). A query with
-no known neighbour gets the zero aggregate, the bias of shard 0's head,
-and is flagged ``degraded`` — never a crash.
+Shapes are fixed per flush bucket (``[B * (1 + M)]`` rows), and each
+bucket resolves its own kernel config
+(:meth:`InductiveEngine.kernel_config`, the reference's per-bucket
+config): the fallback unless the autotuner's cache holds an entry for the
+star graph's shape bucket. A query with no known neighbour gets the zero
+aggregate, the bias of shard 0's head, and is flagged ``degraded`` —
+never a crash.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import KernelConfig, get_config
 
 __all__ = ["InductiveEngine", "route_neighbors", "aggregate_and_head",
            "star_graph"]
@@ -59,12 +64,14 @@ def star_graph(b: int, m: int, device: torch.device
 
 def aggregate_and_head(nb_emb: torch.Tensor, nb_mask: torch.Tensor,
                        head_w: torch.Tensor, head_b: torch.Tensor,
-                       star: Optional[Tuple[torch.Tensor, ...]] = None
+                       star: Optional[Tuple[torch.Tensor, ...]] = None,
+                       config: Optional[KernelConfig] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched star-graph mean aggregation + per-query head.
 
     nb_emb [B, M, E] (zero where masked), nb_mask [B, M], head_w [B, E, C],
-    head_b [B, C]. Returns (aggregate [B, E], logits [B, C]).
+    head_b [B, C]; ``config`` is the bucket's kernel config (None: the
+    device's fallback). Returns (aggregate [B, E], logits [B, C]).
     """
     b, m, e = nb_emb.shape
     device = nb_emb.device
@@ -77,7 +84,8 @@ def aggregate_and_head(nb_emb: torch.Tensor, nb_mask: torch.Tensor,
                   row_ptr=row_ptr, num_nodes=b * (1 + m))
     in_degree = torch.cat([nb_mask.sum(dim=1),
                            torch.ones(b * m, device=device)])
-    agg = ops.csr_aggregate(h, csr, ops.inv_degree(in_degree))[:b]
+    agg = ops.csr_aggregate(h, csr, ops.inv_degree(in_degree),
+                            config=config)[:b]
     logits = torch.bmm(agg[:, None, :], head_w)[:, 0, :] + head_b
     return agg, logits
 
@@ -92,6 +100,13 @@ class InductiveEngine:
 
     def route(self, neighbors) -> Tuple[int, np.ndarray]:
         return route_neighbors(self.store.partition_of, neighbors)
+
+    def kernel_config(self, b_pad: int) -> KernelConfig:
+        """The bucket's kernel config: its star graph's shape ([B·(1+M)]
+        rows, [B·M] arcs, ``embed_dim`` wide) on the store's device."""
+        m = self.max_neighbors
+        return get_config(b_pad * (1 + m), b_pad * m, self.store.embed_dim,
+                          self.store.device)
 
     def star(self, b_pad: int) -> Tuple[torch.Tensor, ...]:
         """The bucket's star graph, built once per bucket size."""
@@ -131,11 +146,13 @@ class InductiveEngine:
               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, np.ndarray]:
         """(aggregates [b_pad, E], logits [b_pad, C], degraded [b_pad],
         owning pids [b_pad]); only the first ``len(neighbor_lists)`` rows
-        are real queries."""
+        are real queries. The aggregation runs under the bucket's
+        :meth:`kernel_config` (warmup's calls and every flush alike)."""
         nb_emb, nb_mask, pids = self.prepare(neighbor_lists, b_pad)
         pid_t = torch.as_tensor(pids).to(self.store.device)
         agg, logits = aggregate_and_head(
             nb_emb, nb_mask, self.store.head_w[pid_t],
-            self.store.head_b[pid_t], star=self.star(b_pad))
+            self.store.head_b[pid_t], star=self.star(b_pad),
+            config=self.kernel_config(b_pad))
         degraded = (nb_mask.sum(dim=1) == 0).cpu().numpy()
         return agg, logits, degraded, pids

@@ -42,7 +42,7 @@ from repro_torch.gnn.infer import (gather_partition_tensors,   # noqa: E402
 from repro_torch.gnn.model import GNNConfig                    # noqa: E402
 from repro_torch.gnn.train import (dropout_generators,         # noqa: E402
                                    train_local)
-from repro_torch.kernels import exchange, ops                  # noqa: E402
+from repro_torch.kernels import autotune, exchange, ops        # noqa: E402
 from repro_torch.optim import adamw_init                       # noqa: E402
 from repro_torch.pipeline import artifacts                     # noqa: E402
 from repro_torch.pipeline.pipeline import (PipelineConfig,     # noqa: E402
@@ -550,11 +550,17 @@ def test_cli_runs_sync_on_the_cpu():
 
 # -- on the card -------------------------------------------------------------
 @pytest.fixture
-def cuda():
+def cuda(tmp_path, monkeypatch):
+    """The card, with an empty autotune cache of the test's own: the
+    layers resolve the fallback whatever the machine's cache holds."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "false)")
-    return torch.device("cuda")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune_cache.json"))
+    autotune.clear_memory_cache()
+    yield torch.device("cuda")
+    autotune.clear_memory_cache()
 
 
 @pytest.mark.cuda

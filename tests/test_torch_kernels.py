@@ -364,6 +364,38 @@ def test_merge_path_split_sums_every_arc_once(case, with_inv):
     np.testing.assert_allclose(out, expect.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("case", ["sorted", "hub", "pad_heavy"])
+@pytest.mark.parametrize("items", [16, 32, 64, 128])
+def test_merge_path_split_at_tuned_items(case, items):
+    """The autotuner's ``items`` (``KernelConfig.items``) in place of the
+    shape rule: the same invariants at every value the tuner sweeps, on a
+    hub row and on a third of the arcs parked as padding in one row."""
+    h, src, dst, w, deg, *_ = _graph(case)
+    n = h.shape[0]
+    inv = (1.0 / np.maximum(deg, 1.0)).astype(np.float32)
+    csr = ops.to_csr(_t(src), _t(dst), _t(w), n)
+    row_ptr, e = csr.row_ptr.numpy().astype(np.int64), src.shape[0]
+    sp = agg_kernel.split(n, e, items)
+    assert sp == (items, -(-(n + e) // items))
+    out, walked_by, walked = _merge_path_walk(h, csr.src.numpy(), row_ptr,
+                                              csr.weight.numpy(), inv, sp)
+    assert all(len(g) == 1 for g in walked_by)
+    assert (np.diff([g[0] for g in walked_by]) >= 0).all()
+    assert walked.max() <= 2 * items
+    expect = agg_kernel.plain(_t(h), csr.src, csr.dst, csr.weight, n,
+                              _t(inv))
+    np.testing.assert_allclose(out, expect.numpy(), **TOL)
+
+
+def test_split_takes_the_tuned_items():
+    assert agg_kernel.split(79344, 325288, 0) == \
+        agg_kernel.split(79344, 325288) == (128, 3162)
+    assert agg_kernel.split(79344, 325288, 16) == (16, 25290)
+    for bad in (-1, agg_kernel.MAX_ITEMS + 1):
+        with pytest.raises(ValueError, match="items"):
+            agg_kernel.split(10, 10, bad)
+
+
 def _edge_dot_span_walk(h, g, src, dst, inv):
     """Kernel C's walk in numpy: each warp takes ``SPAN`` consecutive arcs,
     ``PASS`` columns a pass (at least one), ``BATCH`` arcs at a time; it
@@ -620,6 +652,44 @@ def test_cuda_skewed_rows_match_plain(cuda, shape):
                          grads(hc, wc, bc, g, relu),
                          grads(ha, wa, ba, g.abs(), relu)):
         _assert_sum_close(a, e_, s_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sorted", "hub", "pad_heavy"])
+@pytest.mark.parametrize("shape", [(100, 24, 700, 50), (1000, 128, 9000, 128),
+                                   (300, 200, 2000, 130)])
+def test_cuda_tuned_knobs_match_plain(cuda, case, shape):
+    """The autotuner's knobs: kernel B at each row tile (32, 64, 128) is
+    bitwise its 64-row result (k is summed in order whatever the tile),
+    and kernel A at each ``items`` is held against the plain version, on
+    ragged N, F and FO, a hub row and a padding row."""
+    n, f, e, fo = shape
+    h, src, dst, w, deg, wmat, b = _graph(case, n, f, e, fo)
+    csr = ops.to_csr(_t(src, cuda), _t(dst, cuda), _t(w, cuda), n)
+    hc, inv = _t(h, cuda), ops.inv_degree(_t(deg, cuda))
+    wc, bc = _t(wmat, cuda), _t(b, cuda)
+    expect_agg = agg_kernel.plain(hc, csr.src, csr.dst, csr.weight, n, inv)
+    abs_agg = agg_kernel.plain(hc.abs(), csr.src, csr.dst, csr.weight, n,
+                               inv)
+    for items in (0, 16, 32, 64, 128):
+        runs = [fused_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight,
+                                    inv, wc, bc, need_agg=True,
+                                    node_tile=nt, items=items)
+                for nt in fused_kernel.NODE_TILES]
+        for out, agg in runs[1:]:
+            assert torch.equal(out, runs[0][0]) and torch.equal(agg,
+                                                                runs[0][1])
+        _assert_sum_close(runs[0][1], expect_agg, abs_agg)
+        _assert_sum_close(agg_kernel.launch(hc, csr.src, csr.row_ptr,
+                                            csr.weight, inv, items),
+                          expect_agg, abs_agg)
+        z = plain_ref.gcn_epilogue(expect_agg, wc, bc, False)
+        za = plain_ref.gcn_epilogue(abs_agg, wc.abs(), bc.abs(), False)
+        out = runs[0][0]
+        _assert_sum_close(out, z * (out > 0), za * (out > 0))
+    with pytest.raises(ValueError, match="node_tile"):
+        fused_kernel.launch(hc, csr.src, csr.row_ptr, csr.weight, inv, wc,
+                            bc, node_tile=256)
 
 
 @pytest.mark.cuda

@@ -321,3 +321,37 @@ def test_meta_stats_and_errors_as_the_reference_answers(server):
     # a line with no "op" is a query, as in the reference
     (again,) = _lines(server, [b'{"node": 0}'])
     assert again["label"] == int(store.predictions[0])
+
+
+def test_close_ends_open_connections_and_joins_their_threads(replayed):
+    """``ServingState.close`` ends a connection that a client keeps open
+    (the client reads end of file) and joins its handler thread, so no
+    handler thread is still running when the interpreter exits (a daemon
+    handler caught mid-close there aborted ``serve`` at exit)."""
+    args = cli.build_parser().parse_args(
+        ["serve", "--device", "cpu", "--port", "0",
+         "--bundle", str(replayed["bundle"])])
+    srv, state = cli.make_server(args)
+    thread = threading.Thread(target=srv.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+    try:
+        host, port = srv.server_address[:2]
+        with socket.create_connection((host, port), timeout=TIMEOUT) as s:
+            rf, wf = s.makefile("rb"), s.makefile("wb")
+            wf.write(b'{"op": "meta"}\n')
+            wf.flush()
+            assert json.loads(rf.readline())["n"] == state.store.n
+            handlers = list(state.connections)
+            assert len(handlers) == 1 and handlers[0].is_alive()
+            srv.shutdown()
+            srv.server_close()
+            state.close(TIMEOUT)
+            assert not any(t.is_alive() for t in handlers)
+            assert rf.readline() == b""
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.close(TIMEOUT)
+        thread.join(TIMEOUT)
+    assert not thread.is_alive() and not state.pump_thread.is_alive()
