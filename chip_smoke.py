@@ -2,8 +2,8 @@
 """Drive the PyTorch port's GCN serving, GCN training, the paper's
 partitioner comparison, Proteins training, LM serving, the sync and stale
 training modes, the traced, checkpointed and profiled main path, the
-serving commands (``replay``, ``serve``, ``client``) and the kernel
-autotuner on one NVIDIA GPU.
+serving commands (``replay``, ``serve``, ``client``), the kernel
+autotuner and the compiled steps (CUDA graphs) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,17 +19,20 @@ Phases, each fatal on failure:
    256-wide classifier with seeded weights, pooled table, bundle export and
    load, ``warmup()``, then 2,000 Zipf queries with 10% unseen nodes. Every
    known-node answer must equal the offline key, and kernels A and B must
-   have launched during this run. The partition goes through an artifact
-   cache that phases 5 and 14 hit;
+   have launched during this run. The serving buckets run as captured CUDA
+   graphs: warmup compiles 2 a bucket (classify, inductive), 14, and the
+   replay none (``steady_state_recompiles`` 0). The partition goes
+   through an artifact cache that phases 5 and 14 hit;
 4. checks: the inductive logits of one batch against the plain path on the
    same batch; the inference pipeline on karate on the card against the
    plain CPU path;
 5. training main path, same configuration, through ``run_training``: 8 GCN
    replicas trained locally for 60 epochs (dropout 0.3, lr 5e-3), the
    classifier for 150, the trained bundle served with the same replay and
-   exact-match gate. Kernels A (backward) and B (forward) must have
-   launched during training, and the trained test accuracy must beat both
-   chance and the seeded run's;
+   exact-match gate. The stacked step runs as one captured CUDA graph (one
+   compile), and the launch counts are the replays'. Kernels A (backward)
+   and B (forward) must have launched during training, and the trained
+   test accuracy must beat both chance and the seeded run's;
 6. training on the card against the CPU path from the same initial
    parameters with dropout 0, k = 4: karate GCN for 60 epochs; arxiv-like
    at 2,000 nodes for 20 epochs with GCN, SAGE, GCN ``low_memory``, GCN
@@ -66,13 +69,14 @@ Phases, each fatal on failure:
    largest partition and on the one with the most padding arcs: error,
    two calls bitwise equal, device time per call (``torch.profiler``) and
    one device launch a call, beside its CUDA-event time. Then a profile of two
-   training epochs (device time by kernel and by launch, device busy
+   eager training epochs (device time by kernel and by launch, device busy
    share, and each kernel's device launches per wrapper call, counted
    there) and of one AdamW step (its launches);
 9. LM serving main path: ``repro_torch.launch.serve.serve`` on full-width
    ``qwen3_4b`` (36 layers, bf16, weights seeded on the card), 8 requests,
    prompts of 64-1024 tokens in pow2 buckets, 32 new tokens. Logits must
-   be finite and kernel D must have launched 36 x 32 x (buckets) times.
+   be finite and kernel D must have launched 36 x 32 x (buckets) times,
+   from one captured decode graph a bucket (``decode_compiles``).
    Then one decode step of a seeded prefill of the largest bucket, once
    through kernel D and once through its plain version, and a profile of
    4 decode steps (device ms: kernel D, cuBLAS, the rest; idle share; one
@@ -110,7 +114,8 @@ Phases, each fatal on failure:
    configuration (phase 5's partition, from the cache, which gains the
    halo plan): sync (the halo exchange before every layer of every step)
    and stale(4) (every 4th epoch), 60 epochs and the classifier, beside
-   phase 5's local run. Per mode: exchange epochs, the reference's
+   phase 5's local run, each step a captured graph (sync 1 compile,
+   stale(4) 2: "exchange" and "stale"). Per mode: exchange epochs, the reference's
    collective bytes a step and an epoch beside the schedule's count, the
    live exchange MB a layer, ms per epoch, test accuracy. Gates: finite
    losses; kernels A, B and the exchange's backward (kernel A) launched in
@@ -144,10 +149,13 @@ Phases, each fatal on failure:
    ``make_server`` on port 0 in a thread, the port's ``client`` over 8
    connections (2,000 queries), 512 known and 16 inductive queries over 8
    connections; kernel A at the buckets the hit replay used, with its
-   device us per call (``torch.profiler``). Gates: the miss exports and
+   device us per call (``torch.profiler``); then the hit's 10,000 queries
+   replayed on the bundle eagerly and captured, in turns (eager,
+   captured, captured, eager): qps, p50, p99, equal answers. Gates: the miss exports and
    launches kernels A and B, the hit launches no kernel B and kernel A
    exactly warmup's 7 plus one per inductive flush; 0 mismatches and 1
-   degraded answer per replay; 2 bench rows carrying the card's name and
+   degraded answer per replay; every row's ``warm_compiles`` 14 and
+   ``steady_state_recompiles`` 0; 2 bench rows carrying the card's name and
    power limit; the bundle under ``metis``'s fingerprint raises
    ``StaleServingArtifact``; every TCP label equal to the offline key,
    the no-neighbour query degraded; more than one query per flush over
@@ -172,7 +180,26 @@ Phases, each fatal on failure:
    within 0.01 of phase 5's, ms per epoch beside phase 5's (not gated);
    (e) its bundle replayed (2,000 queries, 10% unseen) with 0 mismatches;
    (f) kernel B at each row tile and kernel A over the reversed arcs at
-   each ``items`` on the 8 partitions: CUDA-event ms, device ms, bound.
+   each ``items`` on the 8 partitions: CUDA-event ms, device ms, bound;
+18. compiled steps against the eager loop (``capture=False``): (a) 3
+   epochs of phase 5's configuration (dropout 0.3) and 3 of stale(4), each
+   captured and eager from one initialisation: losses, parameters, table,
+   exchanges and kernel launches bitwise equal; (b) the local, sync and
+   stale steps timed in turns (eager, captured, captured, eager; host
+   clock, 10 steps each, synchronized) and profiled (3 steps each): ms an
+   epoch, device idle share, device kernels and host launches a step
+   (``cudaLaunchKernel``, ``cudaGraphLaunch``, copies and sets, from the
+   profile's runtime records); (c) phase 9's LM (re-seeded): 32 decode
+   steps of its largest bucket captured and eager from copies of one
+   prefill (every token and the caches equal), tokens/s over the steps
+   after the capture, a 4-step profile of each, and ``serve`` of phase 9's
+   requests eagerly beside phase 9's captured report. In (b) and (c) the
+   device records of kernels A, B and D that 2 steps of each path add
+   (a profile of 3 steps less one of 1) must equal what the launch
+   counters moved (on a captured step, the deltas
+   its replays add: so the replay-aware counts that phases 3, 5, 9, 14
+   and 16 gate are measured here), with both paths' counts equal and
+   kernel D 36 a decode step.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
 directory of its own, so no user cache reaches a phase: phases 1-16
@@ -360,7 +387,19 @@ def replay_trained_bundle(result, cfg, dev, label):
           f"known-node answers differ from the offline key")
     check(row["served_by_source"].get("degraded") == 1,
           f"{label}: the zero-neighbour query did not degrade")
+    compiles_gate(row, label)
     return row, batcher, workload, store
+
+
+def compiles_gate(row, label, max_batch=64):
+    """The replay's compiles: warmup captures classify and the inductive
+    program at every bucket, the steady state none."""
+    from repro_torch.serving.batcher import bucket_sizes
+    want = 2 * len(bucket_sizes(max_batch))
+    check(row["warm_compiles"] == want
+          and row["steady_state_recompiles"] == 0,
+          f"{label}: warm_compiles {row['warm_compiles']} (expected {want}),"
+          f" steady_state_recompiles {row['steady_state_recompiles']}")
 
 
 def star_graph_case(inductive, unseen, b, launches_per_call=None):
@@ -986,6 +1025,10 @@ def lm_serving(dev):
           f"({args.requests} requests x {args.max_new} tokens, "
           f"{n_buckets} buckets); kernel D launches {launches}")
     check(report["finite"], "non-finite LM logits")
+    check(report["decode_compiles"] == n_buckets
+          and report["prefill_compiles"] == 0,
+          f"decode graphs {report['decode_compiles']} for {n_buckets} "
+          f"buckets, prefill graphs {report['prefill_compiles']}")
     check(launches == cfg.num_layers * args.max_new * n_buckets,
           f"kernel D launched {launches} times, not {cfg.num_layers} x "
           f"{args.max_new} x {n_buckets}")
@@ -1015,7 +1058,7 @@ def lm_serving(dev):
             prof = profile_decode(p, c, cache, nxt, cur)
         del p, cache
     serving = (s_b + args.max_new, [int(x) + 1 for x in rows])
-    return params, cfg, report, launches, errs, prof, serving
+    return params, cfg, report, launches, errs, prof, serving, args
 
 
 def lm_long_cache(params, cfg, dev, steps=8):
@@ -1332,6 +1375,13 @@ def schedule_bytes(k, h_pad, widths):
             + sum(k * h_pad * f * 4 for f in widths[1:]))
 
 
+# the runtime calls that put work on a stream: a profile's CPU-side records
+# of them count a step's host launches (a graph replay is one
+# cudaGraphLaunch)
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def profile_step(step, what, steps=2):
     """Device time by kernel over ``steps`` calls of ``step`` (a training
     step, inputs bound), the device busy and idle share and the kernels a
@@ -1350,9 +1400,10 @@ def profile_step(step, what, steps=2):
     split = {"kernel A (gather, fix-up)": 0.0, "kernel B product": 0.0,
              "cublas gemm": 0.0, "copy and index (exchange, stack)": 0.0,
              "other": 0.0}
-    n = 0
+    n = host = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host += any(w in e.name for w in HOST_LAUNCHES)
             continue
         n += 1
         name = e.name.lower()
@@ -1368,11 +1419,78 @@ def profile_step(step, what, steps=2):
     row = {"wall_ms_per_step": wall_us / steps / 1e3,
            "device_busy_ms_per_step": busy / steps / 1e3,
            "idle_share": 1 - busy / wall_us, "kernels_per_step": n / steps,
+           "host_launches_per_step": host / steps,
            "device_ms_per_step": {k: v / steps / 1e3
                                   for k, v in split.items()}}
     print(f"profile, {what} ({steps} steps, profiler on): {json.dumps(row)}")
     check(busy > 0, f"the profile of {what} saw no kernel")
     return row
+
+
+def kernel_records(step, what, steps=2, tries=4):
+    """Kernels A, B and D counted on the device over ``steps`` calls of
+    ``step``, against what the launch counters moved over the same calls
+    (on a captured step, the deltas its replays add). A kernel A call is
+    one gather and one fix-up; kernel B fills its aggregate through kernel
+    A's entry point, then adds one product; kernel D is one launch a
+    call. So ``steps`` calls must add gather = fix-up = A + B, product =
+    B and kernel D = D device records. A ``torch.profiler`` window on the
+    card misses records near its start (one of each of these kernels in
+    every window of a 2-step run), so each try takes two windows, each
+    opened by a synchronized kernel of its own: one of 1 call and one of
+    1 + ``steps`` calls; the records the second holds beyond the first
+    are the ``steps`` calls' own. Up to ``tries`` tries: one must match
+    exactly, and no window may hold more records than its counters
+    moved. Returns the counts matched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    names = {"kernel A gather": "csr_aggregate_gather",
+             "kernel A fix-up": "csr_aggregate_fixup",
+             "kernel B product": "fused_gcn_product",
+             "kernel D": "flash_decode"}
+
+    def window(calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=torch.cuda.current_device()).add_(1)
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+        a, b, d = (after[k] - before[k] for k in (
+            "csr_aggregate", "fused_gcn_layer", "flash_decode"))
+        moved = {"kernel A gather": a + b, "kernel A fix-up": a + b,
+                 "kernel B product": b, "kernel D": d}
+        seen = dict.fromkeys(names, 0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for key, name in names.items():
+                    seen[key] += name in e.name
+        return seen, moved
+
+    tries_seen = []
+    for _ in range(tries):
+        (s1, m1), (s2, m2) = window(1), window(1 + steps)
+        added = {k: s2[k] - s1[k] for k in names}
+        expect = {k: m2[k] - m1[k] for k in names}
+        tries_seen.append({"records": [s1, s2], "counters": [m1, m2],
+                           "added": added, "expected": expect})
+        check(all(s[k] <= m[k] for s, m in ((s1, m1), (s2, m2))
+                  for k in names),
+              f"{what}: more kernel records than the counters moved: "
+              f"{tries_seen[-1]}")
+        if added == expect:
+            break
+    print(f"kernel records, {what} (windows of 1 and {1 + steps} calls): "
+          f"{json.dumps(tries_seen)}", flush=True)
+    check(added == expect,
+          f"{what}: in none of {tries} tries do {steps} calls add the "
+          f"kernel records the counters moved")
+    return expect
 
 
 def exchange_against_plain(result, dev):
@@ -1507,6 +1625,11 @@ def frontier_on_card(dev, ds, cache_dir, local, seeded_acc):
         check(result.exchanges.tolist() == expect,
               f"{label}: exchanges by epoch {result.exchanges.tolist()}, "
               f"expected {expect}")
+        graphs = {"exchange": 1, "stale": int(mode == "stale"), "frozen": 0}
+        row["compiles"] = result.compiles
+        check(result.compiles == graphs,
+              f"{label}: captured graphs {result.compiles}, expected "
+              f"{graphs}")
         check(col["total"] == step_bytes
               and col["per_epoch_avg"] == row["schedule_per_epoch_avg"],
               f"{label}: the collective report {col} disagrees with the "
@@ -1537,6 +1660,7 @@ def frontier_on_card(dev, ds, cache_dir, local, seeded_acc):
                 lambda: step(result.params, opt, result.tensors, gens),
                 "sync steps at the main path")
             kernel_row = exchange_against_plain(result, dev)
+            inputs = (batch, halo, result.gnn, cfg.lr)
         del result
         torch.cuda.empty_cache()
     check(rows["sync"]["per_epoch_avg"] > rows["stale(4)"]["per_epoch_avg"]
@@ -1556,7 +1680,7 @@ def frontier_on_card(dev, ds, cache_dir, local, seeded_acc):
         "source": "src/repro_torch/csrc/csr_aggregate.cu",
         "replaces": "src/repro/kernels/csr_aggregate.py:148",
         "launches": sync_launches, **kernel_row}
-    return rows, kernel
+    return rows, kernel, inputs
 
 
 # timing keys of a training run that no span times (the partitioner's and
@@ -1815,6 +1939,7 @@ def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
               f"{label}: the zero-neighbour query did not degrade")
         check(row["queries"] == 10_000 and row["device"].startswith("cuda")
               and row["use_kernel"], f"{label}: not the card's replay")
+        compiles_gate(row, label)
 
     # -- replay: a miss (train + export), then a hit ----------------------
     check(not os.path.exists(bundle), "the bundle dir is not empty")
@@ -1849,11 +1974,11 @@ def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
     check(rc == 0 and hit_launches["fused_gcn_layer"] == 0
           and hit_launches["fused_gcn_layer_need_agg"] == 0,
           f"the hit trained or embedded again: {hit_launches}")
+    n_buckets = row["warm_compiles"] // 2      # one inductive graph a bucket
     check(hit_launches["csr_aggregate"]
-          == row["warm_buckets"] + sum(buckets.values()) > row["warm_buckets"],
+          == n_buckets + sum(buckets.values()) > n_buckets,
           f"kernel A launches {hit_launches['csr_aggregate']} are not "
-          f"warmup's {row['warm_buckets']} and one per inductive flush "
-          f"({buckets})")
+          f"warmup's {n_buckets} and one per inductive flush ({buckets})")
     with open(rows_path) as f:
         rows = json.load(f)
     check(len(rows) == 2 and all(r["gpu_name"] and r["power_limit_w"]
@@ -1929,6 +2054,10 @@ def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
               f"{stats['flush_reasons']}")
         check(mean_batch > 1, f"no batching across connections: mean "
                               f"batch {mean_batch}")
+        check(state.warm_compiles == 2 * n_buckets
+              and stats["steady_state_recompiles"] == 0,
+              f"the server's warmup compiled {state.warm_compiles}, then "
+              f"{stats['steady_state_recompiles']} in the steady state")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1942,6 +2071,29 @@ def serving_surface(dev, cache_dir, phase5, a_launches_per_call):
                     "known_p99_ms": float(np.percentile(lats, 99)),
                     "queries_served": stats["queries_served"],
                     "flushes": stats["flushes"], "mean_batch": mean_batch}
+
+    # -- the hit's queries, eager and captured in turns ---------------------
+    from repro_torch.serving.replay import run_replay
+    rargs = cli.build_parser().parse_args(argv)
+    turns_store = EmbeddingStore.load(bundle, device=dev)
+    workload = make_zipf_workload(
+        turns_store.n, num_queries=rargs.queries, alpha=rargs.alpha,
+        unseen_frac=rargs.unseen_frac, max_neighbors=rargs.max_neighbors,
+        seed=rargs.seed)
+    turns = []
+    for capture in (False, True, True, False):
+        batcher = cli.make_batcher(turns_store, rargs, capture=capture)
+        trow = run_replay(batcher, workload, verify=True)
+        label = "captured" if capture else "eager"
+        check(trow["served_by_source"].get("degraded") == 1,
+              f"{label} replay: the zero-neighbour query did not degrade")
+        compiles_gate(trow, f"{label} replay")
+        turns.append({"path": label, **{k: trow[k] for k in (
+            "throughput_qps", "p50_ms", "p99_ms", "wall_s", "flushes",
+            "warm_compiles")}})
+        print(f"phase 16 {label} replay: {json.dumps(turns[-1])}")
+    out["turns"] = turns
+    del turns_store
 
     # -- kernel A at the buckets the hit replay used -----------------------
     unseen = [nb for node, nb in make_zipf_workload(
@@ -2337,6 +2489,229 @@ def autotune_on_card(dev, ds, cache_dir, phase5):
     return out, rows
 
 
+def compiled_against_eager(dev, ds, inputs, lm_args, lm_report):
+    """Phase 18: the compiled steps (one CUDA graph a signature) against
+    the eager loop (``capture=False``) on one card. ``inputs``: phase 14's
+    batch, halo plan, GNN config and lr (phase 5's partition); ``lm_args``
+    and ``lm_report``: phase 9's serve arguments and captured report.
+    Returns the phase's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.gnn.halo import (capture_steps, make_stale_train_steps,
+                                      train_stale)
+    from repro_torch.gnn.infer import (gather_partition_tensors,
+                                       init_partition_models)
+    from repro_torch.gnn.train import (dropout_generators, make_stacked_step,
+                                       train_local)
+    from repro_torch.kernels import exchange, ops
+    from repro_torch.launch.serve import make_decode, prefill_bucket, serve
+    from repro_torch.models.lm import grow_cache, init_model, prefill_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    batch, halo, gnn, lr = inputs
+    out = {"dropout": gnn.dropout}
+    tensors = gather_partition_tensors(ds, batch, dev)
+
+    def init():
+        return init_partition_models(gnn, ds.num_classes, batch.k,
+                                     torch.Generator().manual_seed(0), dev)
+
+    # (a) 3 epochs captured and eager from one initialisation
+    for mode in ("local", "stale(4)"):
+        runs = []
+        for capture in (True, False):
+            ops.reset_launch_counts()
+            kw = dict(epochs=3, lr=lr, seed=0, device=dev, params=init(),
+                      tensors=tensors, capture=capture)
+            run = (train_local(ds, batch, gnn, **kw) if mode == "local"
+                   else train_stale(ds, batch, halo, gnn, sync_period=4,
+                                    **kw))
+            torch.cuda.synchronize()
+            runs.append((run, ops.launch_counts()))
+        (cap, cap_launches), (eager, eager_launches) = runs
+        same = {"losses": bool(np.array_equal(cap.losses, eager.losses)),
+                "params": all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(cap.params), tree_leaves(eager.params))),
+                "table": bool(torch.equal(cap.embeddings, eager.embeddings)),
+                "launches": cap_launches == eager_launches}
+        if mode != "local":
+            same["exchanges"] = bool(np.array_equal(cap.exchanges,
+                                                    eager.exchanges))
+        graphs = ({"local": 1} if mode == "local" else
+                  {"exchange": 1, "stale": 1, "frozen": 0})
+        print(f"phase 18 (a) {mode}, 3 epochs, dropout {gnn.dropout}: "
+              f"bitwise {json.dumps(same)}; graphs {cap.compiles}; mean "
+              f"losses {cap.losses.mean(axis=1).tolist()}; launches "
+              f"{json.dumps(cap_launches)}", flush=True)
+        check(all(same.values()),
+              f"phase 18: {mode} captured differs from eager: {same}")
+        check(cap.compiles == graphs,
+              f"phase 18: {mode} graphs {cap.compiles}, expected {graphs}")
+        out[f"equal_{mode}"] = same
+        del runs, cap, eager
+
+    # (b) each step, timed in turns and profiled
+    plan = exchange.plan(halo, batch.n_pad, dev)
+
+    def stepper(kind, capture):
+        """A call of one step that carries its own state on."""
+        params = init()
+        state = [params, adamw_init(params, stacked=True)]
+        gens = dropout_generators(0, batch.k, dev)
+        if kind == "local":
+            step = make_stacked_step(tensors, gnn, False, lr, dev, capture)
+
+            def call():
+                state[0], state[1], _ = step(state[0], state[1], gens)
+            return call
+        steps = make_stale_train_steps(gnn, plan, False, lr)
+        if capture:
+            steps = capture_steps(steps, dev)
+        if kind == "sync":
+            def call():
+                state[0], state[1], _, _ = steps["exchange"](
+                    state[0], state[1], tensors, gens)
+            return call
+        caches = steps["exchange"](state[0], state[1], tensors, gens)[3]
+
+        def call():
+            state[0], state[1], _ = steps["stale"](state[0], state[1],
+                                                   tensors, gens, caches)
+        return call
+
+    timing = {}
+    for kind in ("local", "sync", "stale"):
+        calls = {False: stepper(kind, False), True: stepper(kind, True)}
+        for call in calls.values():
+            call()              # the captured step captures here
+            call()
+        torch.cuda.synchronize()
+        ms = {False: [], True: []}
+        for capture in (False, True, True, False):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                calls[capture]()
+            torch.cuda.synchronize()
+            ms[capture].append(1e3 * (time.perf_counter() - t0) / 10)
+        prof = {c: profile_step(calls[c], f"phase 18 {kind} step, "
+                                f"{'captured' if c else 'eager'}", steps=3)
+                for c in (False, True)}
+        records = {c: kernel_records(calls[c], f"phase 18 {kind} step, "
+                                     f"{'captured' if c else 'eager'}")
+                   for c in (False, True)}
+        check(records[True] == records[False]
+              and records[True]["kernel A gather"] > 0
+              and records[True]["kernel B product"] > 0,
+              f"phase 18: the {kind} step's kernel records differ between "
+              f"the captured and eager paths, or hold no kernel A or B: "
+              f"{records}")
+        timing[kind] = {
+            "eager_ms_per_epoch": ms[False], "captured_ms_per_epoch": ms[True],
+            **{f"{path}_{k}": prof[c][k] for c, path in ((False, "eager"),
+                                                          (True, "captured"))
+               for k in ("idle_share", "kernels_per_step",
+                         "host_launches_per_step",
+                         "device_busy_ms_per_step")},
+            "kernel_records_per_2_steps": records[True]}
+        print(f"phase 18 (b) {kind} step: {json.dumps(timing[kind])}",
+              flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    out["steps"] = timing
+    del tensors, plan
+    torch.cuda.empty_cache()
+
+    # (c) phase 9's LM: 32 decode steps of its largest bucket, both ways
+    cfg = get_config(LM_ARCH)
+    params = init_model(cfg, dev, seed=lm_args.seed)
+    lengths = np.array(lm_report["prompt_lengths"])
+    s_b = max(int(k) for k in lm_report["prefill_buckets"])
+    rows = lengths[[prefill_bucket(int(x)) == s_b for x in lengths]]
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (rows.size, s_b)),
+                             dtype=torch.int32, device=dev)
+    n_steps = lm_args.max_new
+    decoded, lm = {}, {}
+    with torch.no_grad():
+        logits, cache, _ = prefill_step(params, cfg, {"tokens": prompt})
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        for capture in (True, False):
+            path = "captured" if capture else "eager"
+            decode = make_decode(params, cfg, dev, capture)
+            grown = grow_cache(cache, s_b + n_steps + 24)
+            tok = first
+            lens = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+            toks = torch.empty((rows.size, n_steps), dtype=torch.int32,
+                               device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lens, _ = decode(tok, lens, grown)
+            toks[:, :1] = tok
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(1, n_steps):
+                tok, lens, _ = decode(tok, lens, grown)
+                toks[:, i:i + 1] = tok
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded[capture] = (toks.clone(), grown["layers"]["k"].clone(),
+                                grown["layers"]["v"].clone())
+
+            def more():
+                nonlocal tok, lens
+                tok, lens, _ = decode(tok, lens, grown)
+            prof = profile_step(more, f"phase 18 LM decode step, {path}",
+                                steps=3)
+            records = kernel_records(more, f"phase 18 LM decode step, "
+                                     f"{path}")
+            check(records["kernel D"] == 2 * cfg.num_layers,
+                  f"phase 18: {records['kernel D']} kernel D "
+                  f"records in 2 {path} decode steps of {cfg.num_layers} "
+                  f"layers")
+            lm[path] = {
+                "first_step_ms": 1e3 * (t1 - t0),
+                "ms_per_step": 1e3 * (t2 - t1) / (n_steps - 1),
+                "tok_per_s": rows.size * (n_steps - 1) / (t2 - t1),
+                **{k: prof[k] for k in (
+                    "idle_share", "kernels_per_step",
+                    "host_launches_per_step", "device_busy_ms_per_step")},
+                "kernel_records_per_2_steps": records}
+            print(f"phase 18 (c) LM {path}, bucket {s_b}, {rows.size} rows:"
+                  f" {json.dumps(lm[path])}", flush=True)
+            del decode, grown
+    same = [bool(torch.equal(a, b)) for a, b in zip(decoded[True],
+                                                      decoded[False])]
+    print(f"phase 18 (c): {n_steps} tokens of {rows.size} rows, captured "
+          f"equal to eager (tokens, k, v): {same}")
+    check(all(same), "phase 18: the captured decode's tokens or cache "
+                     "differ from the eager decode's")
+    del decoded, cache
+    reports = {}
+    for capture in (False, True):
+        rep = serve(lm_args, params=params, capture=capture)
+        reports["captured" if capture else "eager"] = {
+            k: rep[k] for k in ("decode_tok_per_s", "decode_s", "prefill_s",
+                                "decode_compiles", "sample_generation")}
+    print(f"phase 18 (c) serve, phase 9's requests: {json.dumps(reports)}; "
+          f"phase 9's captured run {lm_report['decode_tok_per_s']:.2f} "
+          f"tokens/s")
+    check(reports["eager"]["sample_generation"]
+          == reports["captured"]["sample_generation"]
+          == lm_report["sample_generation"],
+          "phase 18: serve's tokens differ between the eager and captured "
+          "decodes")
+    lm["serve"] = reports
+    out["lm"] = lm
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -2476,7 +2851,11 @@ def main():
         print(f"train loss (mean over partitions): epoch 0 "
               f"{trained.losses[0].mean():.4f}, last "
               f"{trained.losses[-1].mean():.4f}")
-        print(f"train launches: {json.dumps(train_launches)}")
+        print(f"train launches: {json.dumps(train_launches)}; captured "
+              f"graphs {json.dumps(trained.compiles)}")
+        check(trained.compiles == {"local": 1},
+              f"the stacked step was not one captured graph: "
+              f"{trained.compiles}")
         check(train_launches["fused_gcn_layer_need_agg"] > 0
               and train_launches["csr_aggregate"] > 0,
               f"a kernel of the training path never launched: "
@@ -2674,7 +3053,7 @@ def main():
 
     # -- 9. the LM serving main path ---------------------------------------
     lm_params, lm_cfg, lm_report, d_launches, serve_err, lm_prof, \
-        serving = lm_serving(dev)
+        serving, lm_args = lm_serving(dev)
 
     # -- 10. long-cache decode ---------------------------------------------
     long_err, long_step_s = lm_long_cache(lm_params, lm_cfg, dev)
@@ -2720,9 +3099,8 @@ def main():
 
     # -- 14. the frontier: sync and stale(4) beside local ---------------------
     torch.cuda.empty_cache()
-    frontier, exchange_kernel = frontier_on_card(dev, main_ds,
-                                                 main_cache.name, local_row,
-                                                 seeded_acc)
+    frontier, exchange_kernel, halo_inputs = frontier_on_card(
+        dev, main_ds, main_cache.name, local_row, seeded_acc)
 
     # -- 15. the traced main path, its checkpoint and profile -------------
     torch.cuda.empty_cache()
@@ -2738,6 +3116,11 @@ def main():
     tuned, tuned_kernels = autotune_on_card(dev, main_ds, main_cache.name,
                                             phase5)
     main_cache.cleanup()
+
+    # -- 18. compiled steps against the eager loop ---------------------------
+    torch.cuda.empty_cache()
+    compiled = compiled_against_eager(dev, main_ds, halo_inputs, lm_args,
+                                      lm_report)
     tune_dir.cleanup()
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
@@ -2756,11 +3139,12 @@ def main():
                      for m, r in frontier.items()},
         "phase15": traced,
         "phase16": {k: v for k, v in surface.items()
-                    if k in ("serve", "phase_s")},
+                    if k in ("serve", "turns", "phase_s")},
         "phase17": {k: v for k, v in tuned.items() if k in (
             "winner", "winner_ms", "fallback_ms", "candidates", "tune_s",
             "stage_s", "ms_per_epoch", "phase5_ms_per_epoch", "accuracy",
-            "phase5_accuracy", "replay", "sweep", "phase_s")}}))
+            "phase5_accuracy", "replay", "sweep", "phase_s")},
+        "phase18": compiled}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

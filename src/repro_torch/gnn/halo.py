@@ -25,6 +25,17 @@ The step before a stale run's first exchange is local mode's own
 training bit for bit. Both trainers return what ``train_local`` returns,
 with the exchanges of every epoch. :func:`exchange_collective_bytes` gives
 the reference's collective-byte report of the step from the schedule.
+
+As in local mode, each step is a :class:`repro_torch.graphs.CapturedStep`
+(one CUDA graph on the card; ``capture=False`` runs them eagerly): sync's
+one step, and stale's three ("exchange", "stale", "frozen", the
+reference's three jits), which share one memory pool and are each
+captured at their first call. The partition tensors are bound by
+address, and so is the "stale" step's ``caches`` input, which is the
+"exchange" graph's own static output: an exchange epoch's replay
+refreshes what the stale epochs after it read, with no copy. The
+exchange's ``calls`` move on every replay, so ``exchanges[e]`` counts
+each epoch's exchanges as the eager loop does.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import HaloExchangeSpec, NodeDataset, PartitionBatch
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.graphs import CapturedStep, new_pool
 from repro_torch.kernels import exchange as _exchange
 from repro_torch.optim import OptState, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -52,7 +64,8 @@ from .train import (LocalTraining, apply_integration, dropout_generators,
 
 __all__ = ["REFRESH_MODES", "make_halo_forward", "make_sync_forward",
            "make_sync_train_step", "train_sync", "stale_exchange_epochs",
-           "stale_bytes_per_epoch", "make_stale_train_steps", "train_stale",
+           "stale_bytes_per_epoch", "make_stale_train_steps", "capture_steps",
+           "train_stale",
            "exchange_collective_bytes"]
 
 REFRESH_MODES = ("exchange", "cached", "frozen")
@@ -209,11 +222,24 @@ def make_stale_train_steps(cfg: GNNConfig, plan: _exchange.ExchangePlan,
     return {"exchange": step_ex, "stale": step_st, "frozen": step_fz}
 
 
+def capture_steps(steps: Dict[str, Callable], device: torch.device
+                  ) -> Dict[str, CapturedStep]:
+    """Each of :func:`make_stale_train_steps`'s steps as a
+    :class:`CapturedStep` in one shared pool: params and opt donated, the
+    tensors (and the "stale" step's caches) borrowed."""
+    pool = new_pool(device)
+    return {kind: CapturedStep(fn, device, pool=pool, donate=(0, 1),
+                               borrow=(2, 4) if kind == "stale" else (2,),
+                               name=kind)
+            for kind, fn in steps.items()}
+
+
 def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                 halo: HaloExchangeSpec, cfg: GNNConfig, epochs: int,
                 lr: float, seed: int, schedule: Sequence[int],
                 integrate: str, device: DeviceLike, params: Optional[Params],
-                tensors: Optional[PartitionTensors]) -> LocalTraining:
+                tensors: Optional[PartitionTensors],
+                capture: bool = True) -> LocalTraining:
     """The epoch loop of both modes (``mode`` "sync" or "stale"): exchange
     steps on the epochs of ``schedule`` (every epoch: sync), local steps
     before the first, cached steps after it. Traced epochs are
@@ -232,6 +258,8 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
         tensors = gather_partition_tensors(ds, batch, device)
     plan = _exchange.plan(halo, batch.n_pad, device)
     steps = make_stale_train_steps(cfg, plan, ds.multilabel, lr)
+    if capture:
+        steps = capture_steps(steps, device)
     gens = dropout_generators(seed, k, device)
     opt = adamw_init(params, stacked=True)
     losses = torch.empty((epochs, k), dtype=torch.float32, device=device)
@@ -292,18 +320,23 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                          losses=losses.cpu().numpy(),
                          seconds={"epochs": t1 - t0,
                                   "embed": time.perf_counter() - t1},
-                         exchanges=exchanges)
+                         exchanges=exchanges,
+                         compiles={kind: getattr(fn, "compiles", 0)
+                                   for kind, fn in steps.items()})
 
 
 def train_sync(ds: NodeDataset, batch: PartitionBatch,
                halo: HaloExchangeSpec, cfg: GNNConfig, *, epochs: int = 60,
                lr: float = 1e-2, seed: int = 0, integrate: str = "none",
                device: DeviceLike = "cuda", params: Optional[Params] = None,
-               tensors: Optional[PartitionTensors] = None) -> LocalTraining:
+               tensors: Optional[PartitionTensors] = None,
+               capture: bool = True) -> LocalTraining:
     """The sync baseline: the halo rows are exchanged before every layer of
-    every step. ``params``/``tensors`` default as in ``train_local``."""
+    every step. ``params``/``tensors``/``capture`` as in
+    ``train_local``."""
     return _train_halo("sync", ds, batch, halo, cfg, epochs, lr, seed,
-                       range(epochs), integrate, device, params, tensors)
+                       range(epochs), integrate, device, params, tensors,
+                       capture)
 
 
 def train_stale(ds: NodeDataset, batch: PartitionBatch,
@@ -311,15 +344,15 @@ def train_stale(ds: NodeDataset, batch: PartitionBatch,
                 lr: float = 1e-2, seed: int = 0,
                 sync_period: Optional[int] = 4, integrate: str = "none",
                 device: DeviceLike = "cuda", params: Optional[Params] = None,
-                tensors: Optional[PartitionTensors] = None
-                ) -> LocalTraining:
+                tensors: Optional[PartitionTensors] = None,
+                capture: bool = True) -> LocalTraining:
     """Stale mode: the exchange runs on :func:`stale_exchange_epochs`
     only; the epochs between train against the halo rows cached at the
     last exchange, and those before the first (``sync_period`` 0 or None:
     every epoch) are local steps."""
     return _train_halo("stale", ds, batch, halo, cfg, epochs, lr, seed,
                        stale_exchange_epochs(epochs, sync_period),
-                       integrate, device, params, tensors)
+                       integrate, device, params, tensors, capture)
 
 
 def exchange_collective_bytes(cfg: GNNConfig,

@@ -24,6 +24,16 @@ each epoch runs in a ``train.epoch`` span (the sequential path: each
 partition in a ``train.partition`` span) that ends in one ``.item()`` of
 the mean loss, so the span covers the card's work; the untraced loop never
 waits on the card.
+
+Each step runs as a :class:`repro_torch.graphs.CapturedStep` (the
+reference jits it): on the card one CUDA graph holds the whole stacked
+step (k forwards, k backwards, the stacked AdamW), the sequential path's
+single-partition step (one graph for all k partitions, which padding
+gives one shape) and the classifier's step. Parameters and optimizer
+state are donated, so they stay in the graph's static buffers from epoch
+to epoch, and each epoch's loss is copied out of its static output.
+``capture=False`` runs the eager loop instead (the tests and
+``chip_smoke.py`` compare the two on the card).
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from repro_torch import obs
 from repro_torch.core import (NodeDataset, PartitionBatch,
                               average_partition_params)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.graphs import CapturedStep
 from repro_torch.optim import OptState, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -48,8 +59,10 @@ from .model import (GNNConfig, gnn_forward, head_logits, init_mlp,
                     mlp_forward, sigmoid_bce, softmax_xent)
 
 __all__ = ["LocalTraining", "dropout_generators", "partition_loss",
-           "local_train_step", "stacked_train_step", "train_local", "apply_integration",
-           "train_classifier", "mean_rocauc", "finish_epoch_span"]
+           "local_train_step", "stacked_train_step", "make_stacked_step",
+           "make_local_step", "make_classifier_step", "train_local",
+           "apply_integration", "train_classifier", "mean_rocauc",
+           "finish_epoch_span"]
 
 
 def finish_epoch_span(sp, loss: torch.Tensor) -> None:
@@ -70,6 +83,8 @@ class LocalTraining(NamedTuple):
     seconds: Dict[str, float]   # "epochs" (the loop), "embed" (+ pooling)
     exchanges: Optional[np.ndarray] = None   # [epochs] halo exchanges in
                                              # each step (sync and stale)
+    compiles: Optional[Dict[str, int]] = None   # step kind -> signatures
+                                                # compiled (captured)
 
 
 def dropout_generators(seed: int, k: int, device: torch.device
@@ -139,18 +154,49 @@ def stacked_train_step(params: Params, opt: OptState, tensors: PartitionTensors,
     return params, opt, torch.stack(losses)
 
 
+def make_stacked_step(tensors: PartitionTensors, cfg: GNNConfig,
+                      multilabel: bool, lr: float, device: torch.device,
+                      capture: bool = True) -> Callable:
+    """``step(params, opt, gens) -> (params, opt, losses [k])`` over
+    ``tensors`` (bound by address): :func:`stacked_train_step` as one
+    :class:`CapturedStep` with params and opt donated, or itself with
+    ``capture=False``."""
+    def stacked(params, opt, gens):
+        return stacked_train_step(params, opt, tensors, cfg, multilabel, lr,
+                                  gens)
+    if not capture:
+        return stacked
+    return CapturedStep(stacked, device, donate=(0, 1), name="local")
+
+
+def make_local_step(cfg: GNNConfig, multilabel: bool, lr: float,
+                    device: torch.device, capture: bool = True) -> Callable:
+    """``step(params, opt, tensors, gen) -> (params, opt, loss)``: one
+    partition's step (:func:`local_train_step` on a ``k = 1`` batch), whose
+    tensors are copied into the step's static inputs on every call, so one
+    graph serves every partition of one padded shape."""
+    def local(params, opt, tensors, gen):
+        return local_train_step(params, opt, tensors, 0, cfg, multilabel,
+                                lr, gen)
+    if not capture:
+        return local
+    return CapturedStep(local, device, donate=(0, 1), name="sequential")
+
+
 def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
                 epochs: int = 60, lr: float = 1e-2, seed: int = 0,
                 integrate: str = "none", sequential: bool = False,
                 device: DeviceLike = "cuda", params: Optional[Params] = None,
-                tensors: Optional[PartitionTensors] = None) -> LocalTraining:
+                tensors: Optional[PartitionTensors] = None,
+                capture: bool = True) -> LocalTraining:
     """The paper's local training; returns the trained (and integrated)
     stacked parameters, the pooled ``[n, E]`` table and every step's loss.
 
     ``params`` defaults to :func:`init_partition_models` seeded with
     ``seed``; ``tensors`` (the vmapped path) to the batch gathered onto
     ``device``. ``sequential=True`` gathers one partition at a time
-    instead; the trained parameters are the same."""
+    instead; the trained parameters are the same. ``capture=False`` runs
+    the eager loop (see the module docstring)."""
     device = resolve_device(device)
     k = batch.k
     if params is None:
@@ -166,6 +212,7 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
     if sequential:
         def one(p):
             return gather_partition_tensors(ds, batch, device, only=p)
+        step = make_local_step(cfg, ds.multilabel, lr, device, capture)
         trained = []
         for p in range(k):
             t_p = one(p)
@@ -174,15 +221,16 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
             with obs.span("train.partition", partition=p, epochs=epochs,
                           mode="local_sequential") as psp:
                 for e in range(epochs):
-                    params_p, opt, losses[e, p] = local_train_step(
-                        params_p, opt, t_p, 0, cfg, ds.multilabel, lr,
-                        gens[p])
+                    params_p, opt, losses[e, p] = step(params_p, opt, t_p,
+                                                       gens[p])
                     epochs_ctr.inc()
                 if traced and epochs:
                     finish_epoch_span(psp, losses[epochs - 1, p])
-            trained.append(params_p)
+            # the next partition's first call overwrites the static buffers
+            trained.append(tree_map(torch.clone, params_p))
             del t_p
         params = tree_map(lambda *xs: torch.stack(xs), *trained)
+        compiles = {"sequential": getattr(step, "compiles", 0)}
 
         def emb_fn(ps):
             return torch.cat([compute_embeddings(
@@ -196,16 +244,17 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
         if tensors is None:
             tensors = gather_partition_tensors(ds, batch, device)
         opt = adamw_init(params, stacked=True)
+        step = make_stacked_step(tensors, cfg, ds.multilabel, lr, device,
+                                 capture)
         for e in range(epochs):
             if traced:
                 with obs.span("train.epoch", epoch=e, mode="local") as sp:
-                    params, opt, losses[e] = stacked_train_step(
-                        params, opt, tensors, cfg, ds.multilabel, lr, gens)
+                    params, opt, losses[e] = step(params, opt, gens)
                     finish_epoch_span(sp, losses[e])
             else:
-                params, opt, losses[e] = stacked_train_step(
-                    params, opt, tensors, cfg, ds.multilabel, lr, gens)
+                params, opt, losses[e] = step(params, opt, gens)
             epochs_ctr.inc()
+        compiles = {"local": getattr(step, "compiles", 0)}
 
         def emb_fn(ps):
             return compute_embeddings(ps, cfg, tensors)
@@ -218,7 +267,8 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
     return LocalTraining(params=params, embeddings=table,
                          losses=losses.cpu().numpy(),
                          seconds={"epochs": t1 - t0,
-                                  "embed": time.perf_counter() - t1})
+                                  "embed": time.perf_counter() - t1},
+                         compiles=compiles)
 
 
 def apply_integration(params: Params, integrate: Optional[str],
@@ -246,15 +296,36 @@ def apply_integration(params: Params, integrate: Optional[str],
         f"integrate must be none|model_avg|ensemble, got {integrate!r}")
 
 
+def make_classifier_step(x: torch.Tensor, y: torch.Tensor,
+                         train_mask: torch.Tensor, multilabel: bool,
+                         lr: float, capture: bool = True) -> Callable:
+    """``step(params, opt) -> (params, opt)``: one full-batch AdamW step
+    of the classifier on ``x`` (bound by address), as one
+    :class:`CapturedStep` with both donated, or eager with
+    ``capture=False``."""
+    loss_fn = sigmoid_bce if multilabel else softmax_xent
+
+    def classifier(params, opt):
+        _, grads = _loss_and_grads(
+            lambda p: loss_fn(mlp_forward(p, x), y, train_mask), params)
+        return adamw_update(grads, opt, params, lr)
+    if not capture:
+        return classifier
+    return CapturedStep(classifier, x.device, donate=(0, 1),
+                        name="classifier")
+
+
 def train_classifier(ds: NodeDataset, embeddings: torch.Tensor,
                      hidden: int = 256, epochs: int = 150, lr: float = 1e-2,
-                     seed: int = 0, params: Optional[Params] = None
+                     seed: int = 0, params: Optional[Params] = None,
+                     capture: bool = True
                      ) -> Tuple[Dict[str, float], Params]:
     """Train the MLP on the frozen pooled table (full batch, AdamW) and
     report train/val/test accuracy (mean ROC-AUC for multilabel data).
 
-    ``params`` defaults to :func:`init_mlp` seeded with ``seed``. Returns
-    ``(metrics, trained params)``."""
+    ``params`` defaults to :func:`init_mlp` seeded with ``seed``;
+    ``capture=False`` runs the eager loop. Returns ``(metrics, trained
+    params)``."""
     device = embeddings.device
     if params is None:
         params = init_mlp(torch.Generator().manual_seed(seed),
@@ -266,11 +337,9 @@ def train_classifier(ds: NodeDataset, embeddings: torch.Tensor,
                         dtype=torch.float32 if ds.multilabel
                         else torch.int64)
     tr = torch.as_tensor(ds.train_mask, dtype=torch.float32, device=device)
-    loss_fn = sigmoid_bce if ds.multilabel else softmax_xent
+    step = make_classifier_step(x, y, tr, ds.multilabel, lr, capture)
     for _ in range(epochs):
-        _, grads = _loss_and_grads(
-            lambda p: loss_fn(mlp_forward(p, x), y, tr), params)
-        params, opt = adamw_update(grads, opt, params, lr)
+        params, opt = step(params, opt)
     with torch.no_grad():
         logits = mlp_forward(params, x).cpu().numpy()
     out = {}

@@ -32,7 +32,8 @@ gradient reaches the caller's weights in the caller's arc order.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from types import ModuleType
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,7 +46,7 @@ from . import fused_layer as _fused
 from .flash_decode import flash_decode
 
 __all__ = ["Csr", "to_csr", "csr_aggregate", "fused_gcn_layer",
-           "flash_decode", "inv_degree", "launch_counts",
+           "flash_decode", "inv_degree", "COUNTERS", "launch_counts",
            "reset_launch_counts"]
 
 
@@ -171,23 +172,32 @@ def fused_gcn_layer(h: torch.Tensor, csr: Csr,
                         config=config)[0]
 
 
+#: Every counter a kernel wrapper moves, by name: ``(module, attribute)``.
+#: :func:`launch_counts` reads them, :func:`reset_launch_counts` zeroes
+#: them, and a captured step (:mod:`repro_torch.graphs`) replays them all.
+#: ``exchange_calls`` counts halo exchanges (on either device; the trainers
+#: read it by epoch), every other entry the launches of a kernel on the
+#: card.
+COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
+    "csr_aggregate": (_agg, "launches"),
+    "fused_gcn_layer": (_fused, "launches"),
+    "fused_gcn_layer_need_agg": (_fused, "launches_need_agg"),
+    "edge_dot": (_edge_dot, "launches"),
+    "flash_decode": (_flash, "launches"),
+    "exchange_backward": (_exchange, "launches"),
+    "exchange_calls": (_exchange, "calls"),
+}
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"csr_aggregate": _agg.launches,
-            "fused_gcn_layer": _fused.launches,
-            "fused_gcn_layer_need_agg": _fused.launches_need_agg,
-            "edge_dot": _edge_dot.launches,
-            "flash_decode": _flash.launches,
-            "exchange_backward": _exchange.launches}
+    """Every :data:`COUNTERS` entry since the last
+    :func:`reset_launch_counts`."""
+    return {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _agg.launches = 0
-    _fused.launches = 0
-    _fused.launches_need_agg = 0
-    _edge_dot.launches = 0
-    _flash.launches = 0
-    _exchange.launches = 0
+    for m, a in COUNTERS.values():
+        setattr(m, a, 0)
 
 
 def inv_degree(in_degree: torch.Tensor) -> torch.Tensor:

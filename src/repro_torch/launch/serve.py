@@ -4,9 +4,17 @@ Requests are grouped into power-of-two prompt-length buckets; each bucket
 shares one padded prefill and decodes in lock-step with per-request
 lengths. The prompts, their lengths and the buckets come from the same
 numpy seed, drawn in the same order, as the reference launcher's, and the
-report has its keys. PyTorch runs eagerly, so there is nothing to compile:
-``prefill_compiles`` and ``decode_compiles`` are -1, the value the
-reference reports when it cannot count.
+report has its keys.
+
+The decode step (:func:`repro_torch.models.lm.serve_step`, then the
+argmax and the length's increment) is a
+:class:`repro_torch.graphs.CapturedStep`: one CUDA graph per bucket on
+the card, the bucket's grown cache bound by address (written in place by
+the graph), the token and lengths donated. ``decode_compiles`` counts its
+graphs, which is the reference's count (one jit compile per bucket).
+Prefill runs once per bucket and stays eager: ``prefill_compiles`` is the
+number of prefill graphs, 0 (the reference compiles one per bucket).
+``capture=False`` decodes eagerly (``decode_compiles`` 0).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch qwen3_4b --reduced --requests 4 --max-new 16
@@ -23,6 +31,7 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device, synchronize
+from ..graphs import CapturedStep
 from ..models.lm import grow_cache, init_model, prefill_step, serve_step
 
 MIN_PREFILL_BUCKET = 8
@@ -36,11 +45,29 @@ def prefill_bucket(length: int) -> int:
     return b
 
 
-def serve(args: argparse.Namespace, params: Optional[Dict] = None) -> dict:
+def make_decode(params: Dict, cfg, device: torch.device,
+                capture: bool = True):
+    """``decode(tokens [B, 1], lengths [B], cache) -> (next tokens,
+    lengths + 1, logits [B, V])``: one greedy decode step, writing the
+    cache in place; a :class:`CapturedStep` (tokens and lengths donated,
+    the cache borrowed) or, with ``capture=False``, eager."""
+    def decode(tokens, lengths, cache):
+        logits, _ = serve_step(params, cfg, tokens, cache, lengths)
+        return (logits.argmax(dim=-1).to(torch.int32)[:, None], lengths + 1,
+                logits)
+    if not capture:
+        return decode
+    return CapturedStep(decode, device, donate=(0, 1), borrow=(2,),
+                        name="decode")
+
+
+def serve(args: argparse.Namespace, params: Optional[Dict] = None,
+          capture: bool = True) -> dict:
     """Serve ``args.requests`` synthetic requests; returns the report.
 
     ``params`` replaces the seeded weights (the tests pass the reference's,
-    through :func:`repro_torch.models.convert.params_from_reference`)."""
+    through :func:`repro_torch.models.convert.params_from_reference`);
+    ``capture=False`` decodes eagerly."""
     device = resolve_device(getattr(args, "device", "cuda"))
     cfg = get_config(args.arch)
     if args.reduced:
@@ -48,6 +75,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None) -> dict:
     rng = np.random.default_rng(args.seed)
     if params is None:
         params = init_model(cfg, device, seed=args.seed)
+    decode = make_decode(params, cfg, device, capture)
 
     lengths = rng.integers(args.min_prompt, args.max_prompt + 1,
                            args.requests)
@@ -76,14 +104,12 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None) -> dict:
 
             t1 = time.perf_counter()
             next_tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
-            steps = []
-            for _ in range(args.max_new):
-                steps.append(next_tok)
-                logits, cache = serve_step(params, cfg, next_tok, cache,
-                                           cur_len)
-                cur_len = cur_len + 1
-                next_tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
-            gen[idx] = torch.cat(steps, dim=1).cpu().numpy()
+            steps = torch.empty((idx.size, args.max_new), dtype=torch.int32,
+                                device=device)
+            for i in range(args.max_new):
+                steps[:, i:i + 1] = next_tok    # before a replay rewrites it
+                next_tok, cur_len, logits = decode(next_tok, cur_len, cache)
+            gen[idx] = steps.cpu().numpy()
             t_decode += time.perf_counter() - t1
             finite = finite and bool(torch.isfinite(logits).all())
 
@@ -92,8 +118,8 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None) -> dict:
         "prompt_lengths": lengths.tolist(),
         "prefill_buckets": {str(k): v
                             for k, v in sorted(bucket_counts.items())},
-        "prefill_compiles": -1,
-        "decode_compiles": -1,
+        "prefill_compiles": 0,
+        "decode_compiles": getattr(decode, "compiles", 0),
         "new_tokens": args.max_new,
         "prefill_s": t_prefill,
         "decode_s": t_decode,

@@ -58,8 +58,10 @@ def adamw_update(grads: Tree, state: OptState, params: Tree, lr: float, *,
     nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float().square(),
                   state.nu, grads)
     t = step.float()
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+    # the Python scalar base rounds to b1's f32 as a 0-d tensor would, and
+    # needs no host-to-device copy (a captured step cannot take one)
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
 
     def upd(p, m, v):
         mhat = m / _per_row(bc1, m)

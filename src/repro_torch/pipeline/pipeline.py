@@ -130,6 +130,8 @@ class PipelineResult:
     accuracy: Dict[str, float] = dataclasses.field(default_factory=dict)
     losses: Optional[np.ndarray] = None   # [epochs, k], training runs
     exchanges: Optional[np.ndarray] = None   # [epochs], sync and stale
+    compiles: Dict[str, int] = dataclasses.field(
+        default_factory=dict)       # training step kind -> captured graphs
     collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
     serving_path: Optional[str] = None
     checkpoint_path: Optional[str] = None
@@ -467,7 +469,8 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
         params=trained.params, classifier=classifier,
         embeddings=trained.embeddings, predictions=np.zeros(0, np.int32),
         timings={}, accuracy=accuracy, losses=trained.losses,
-        exchanges=trained.exchanges, collectives=collectives,
+        exchanges=trained.exchanges, compiles=trained.compiles or {},
+        collectives=collectives,
         profile_path=profiler.path, kernel=kernel)
     if cfg.checkpoint_dir:
         result.checkpoint_path = stage("checkpoint", lambda: save_checkpoint(

@@ -12,8 +12,8 @@ Entry points:
   when ``PipelineConfig.serving_dir`` is set)
 - :class:`EmbeddingStore` / :class:`ContinuousBatcher` — library use
 """
-from .batcher import (Answer, ContinuousBatcher, Query, bucket_of,
-                      bucket_sizes)
+from .batcher import (Answer, CompileLog, ContinuousBatcher, Query,
+                      bucket_of, bucket_sizes)
 from .cache import LruNodeCache
 from .inductive import InductiveEngine, route_neighbors
 from .replay import (DEFAULT_BENCH_JSON, append_bench_rows, bench_row,
@@ -23,7 +23,8 @@ from .store import (SERVING_VERSION, EmbeddingStore, ShardStore,
                     export_serving_bundle)
 
 __all__ = [
-    "Answer", "ContinuousBatcher", "Query", "bucket_of", "bucket_sizes",
+    "Answer", "CompileLog", "ContinuousBatcher", "Query", "bucket_of",
+    "bucket_sizes",
     "LruNodeCache",
     "InductiveEngine", "route_neighbors",
     "DEFAULT_BENCH_JSON", "append_bench_rows", "bench_row",

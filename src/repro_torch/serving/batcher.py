@@ -6,7 +6,19 @@ flush routes queries by partition: known nodes gather their embedding from
 the owning shard (through the LRU hot-node cache) and run the classifier
 (:func:`repro_torch.serving.store.classify`, the same row blocks as the
 offline answer key); unknown nodes take the inductive fallback on the
-shard owning most of their neighbours, padded to a power-of-two bucket.
+shard owning most of their neighbours. Both paths pad a flush to its
+power-of-two bucket.
+
+**Zero-recompile discipline**, as in the reference: the classifier and
+the inductive program are :class:`repro_torch.graphs.CapturedStep` objects
+(one CUDA graph per bucket on the card, in one memory pool), and
+``warmup()`` compiles every bucket of both through a :class:`CompileLog`,
+then marks it steady: ``compiles.steady_state_recompiles`` counts any
+compile after that. The host work of a flush (the cache and store
+lookups, the stack and padding of the known rows, the inductive routing)
+stays outside the graphs; its results are copied into the bucket's
+static inputs. ``capture=False`` runs both programs eagerly (the
+``CompileLog`` then counts new shapes, the reference's fallback).
 """
 from __future__ import annotations
 
@@ -19,13 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.graphs import CapturedStep, CompileLog, new_pool
 
 from .cache import LruNodeCache
 from .inductive import InductiveEngine
 from .store import classify
 
-__all__ = ["Query", "Answer", "ContinuousBatcher", "bucket_sizes",
-           "bucket_of"]
+__all__ = ["Query", "Answer", "CompileLog", "ContinuousBatcher",
+           "bucket_sizes", "bucket_of"]
 
 
 def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
@@ -73,13 +86,20 @@ class ContinuousBatcher:
     def __init__(self, store, cache: Optional[LruNodeCache] = None,
                  max_batch: int = 64, max_wait_ms: float = 2.0,
                  max_neighbors: int = 32,
-                 now: Callable[[], float] = time.perf_counter):
+                 now: Callable[[], float] = time.perf_counter,
+                 capture: bool = True):
         self.store = store
         self.cache = cache if cache is not None else LruNodeCache()
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
         self.now = now
-        self.inductive = InductiveEngine(store, max_neighbors=max_neighbors)
+        pool = new_pool(store.device) if capture else None
+        self.inductive = InductiveEngine(store, max_neighbors=max_neighbors,
+                                         capture=capture, pool=pool)
+        self.compiles = CompileLog()
+        self._classify = CapturedStep(self._classify_rows, store.device,
+                                      pool=pool, name="classify") \
+            if capture else self._classify_rows
         self._queue: deque[Query] = deque()
         self._next_qid = 0
         self.flushes = 0
@@ -126,19 +146,30 @@ class ContinuousBatcher:
             out.extend(self.flush("drain"))
         return out
 
+    def _classify_rows(self, emb: torch.Tensor) -> torch.Tensor:
+        return classify(self.store.classifier, emb)
+
     def warmup(self) -> int:
-        """Run the classifier and every inductive bucket once (allocator,
-        library handles, star graphs, each bucket's kernel config);
-        returns the number of buckets."""
-        e = self.store.embed_dim
-        buckets = bucket_sizes(self.max_batch)
-        for b in buckets:
-            classify(self.store.classifier,
-                     torch.zeros((b, e), device=self.store.device))
-            self.inductive.infer([np.zeros(0, np.int64)] * b, b)
-        if self.store.device.type == "cuda":
-            torch.cuda.synchronize(self.store.device)
-        return len(buckets)
+        """Compile the classifier and the inductive program at every
+        bucket; returns the number of compiles.
+
+        After ``warmup()`` the steady state must never compile again —
+        ``compiles.steady_state_recompiles`` counts violations."""
+        e, m = self.store.embed_dim, self.inductive.max_neighbors
+        dev = self.store.device
+        for b in bucket_sizes(self.max_batch):
+            self.compiles.call("classify", self._classify,
+                               torch.zeros((b, e), device=dev))
+            self.compiles.call(
+                "inductive", self.inductive.program,
+                torch.zeros((b, m, e), device=dev),
+                torch.zeros((b, m), device=dev),
+                torch.zeros(b, dtype=torch.int64, device=dev))
+        warmed = sum(self.compiles.warm_compiles.values())
+        self.compiles.mark_steady()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return warmed
 
     def flush(self, reason: str = "drain") -> List[Answer]:
         batch = [self._queue.popleft()
@@ -187,9 +218,15 @@ class ContinuousBatcher:
             for pos, nid, row in zip(miss_pos, ids, fetched):
                 rows[pos] = row
                 self.cache.put(nid, row)
-        emb = torch.stack(rows)
-        logits = classify(self.store.classifier, emb)
-        logits_h, emb_h = logits.cpu().numpy(), emb.cpu().numpy()
+        n = len(queries)
+        b_pad = bucket_of(n, self.max_batch)
+        # zero rows pad the bucket; classify's row blocks see the same
+        # rows as without them, so every real row keeps its bits
+        emb = torch.zeros((b_pad, self.store.embed_dim),
+                          device=self.store.device)
+        emb[:n] = torch.stack(rows)
+        logits = self.compiles.call("classify", self._classify, emb)
+        logits_h, emb_h = logits[:n].cpu().numpy(), emb[:n].cpu().numpy()
         labels = logits_h.argmax(-1)
         t_done = self.now()
         return [self._answer(q, int(labels[i]),
@@ -206,7 +243,8 @@ class ContinuousBatcher:
         obs.counter(f"serving.bucket.inductive.{b_pad}").inc()
         nb_lists = [q.neighbors if q.neighbors is not None
                     else np.zeros(0, np.int64) for q in queries]
-        emb, logits, degraded, pids = self.inductive.infer(nb_lists, b_pad)
+        emb, logits, degraded, pids = self.inductive.infer(
+            nb_lists, b_pad, compiles=self.compiles)
         logits_h, emb_h = logits.cpu().numpy(), emb.cpu().numpy()
         labels = logits_h.argmax(-1)
         t_done = self.now()
@@ -227,4 +265,5 @@ class ContinuousBatcher:
             "per_shard_served": {str(k): v for k, v in
                                  sorted(self.per_shard_served.items())},
             "cache": self.cache.stats(),
+            **self.compiles.stats(),
         }

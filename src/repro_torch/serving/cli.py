@@ -37,9 +37,11 @@ Where the port differs from the reference:
   to the home directory);
 * ``replay --bench-json`` writes a bench row only when given a path (the
   reference appends to its benchmark folder's ``BENCH_serving.json`` by
-  default); ``none`` also skips;
-* the report's and the row's compile counts are ``warmup N buckets``
-  (``warm_buckets``): eager PyTorch compiles nothing.
+  default); ``none`` also skips.
+
+A compile is a CUDA graph captured for a bucket (on the CPU, a bucket's
+first call), so the row's ``warm_compiles`` and
+``steady_state_recompiles`` count what the reference's count.
 """
 from __future__ import annotations
 
@@ -207,13 +209,15 @@ def load_store(args):
                                expect_fingerprint=fp)
 
 
-def make_batcher(store, args):
+def make_batcher(store, args, capture: bool = True):
+    """The command's batcher; ``capture=False`` runs its programs eagerly
+    (no flag: the reference has none)."""
     from .batcher import ContinuousBatcher
     from .cache import LruNodeCache
     return ContinuousBatcher(
         store, cache=LruNodeCache(args.cache_capacity),
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        max_neighbors=args.max_neighbors)
+        max_neighbors=args.max_neighbors, capture=capture)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +249,8 @@ def cmd_replay(args) -> int:
               f"{row['wall_s']}s ({row['throughput_qps']} qps)")
         print(f"  latency      p50={row['p50_ms']}ms p99={row['p99_ms']}ms")
         print(f"  cache        hit_rate={row['cache_hit_rate']}")
-        print(f"  warmup       {row['warm_buckets']} buckets")
+        print(f"  compiles     warm={row['warm_compiles']} "
+              f"steady_state={row['steady_state_recompiles']}")
         reasons = ", ".join(f"{k}={v}" for k, v in
                             sorted(row["flush_reasons"].items()))
         print(f"  flushes      {row['flushes']} ({reasons})")
@@ -274,7 +279,7 @@ class ServingState:
         self.events: Dict[int, threading.Event] = {}
         self.closing = threading.Event()
         self.error: Optional[BaseException] = None
-        self.warm_buckets = 0
+        self.warm_compiles = 0
         self.pump_thread = threading.Thread(target=self.pump_loop,
                                             name="serving-pump", daemon=True)
         # handler thread -> its connection (finished threads are dropped
@@ -408,7 +413,7 @@ def make_server(args) -> Tuple[socketserver.ThreadingTCPServer,
     store = load_store(args)
     batcher = make_batcher(store, args)
     state = ServingState(store, batcher)
-    state.warm_buckets = batcher.warmup()
+    state.warm_compiles = batcher.warmup()
     srv = socketserver.ThreadingTCPServer((args.host, args.port), _Handler)
     srv.daemon_threads = True
     srv.state = state
@@ -421,8 +426,8 @@ def cmd_serve(args) -> int:
     host, port = srv.server_address[:2]
     try:                    # a ctrl-c as soon as the port is printed closes
         print(f"serving {state.store.summary()}")   # the server too
-        print(f"listening on {host}:{port} (warmup ran "
-              f"{state.warm_buckets} bucket shapes; ctrl-c to stop)")
+        print(f"listening on {host}:{port} (warmup compiled "
+              f"{state.warm_compiles} bucket shapes; ctrl-c to stop)")
         sys.stdout.flush()
         srv.serve_forever(poll_interval=0.2)
     except KeyboardInterrupt:

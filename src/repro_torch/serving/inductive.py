@@ -18,6 +18,14 @@ config): the fallback unless the autotuner's cache holds an entry for the
 star graph's shape bucket. A query with no known neighbour gets the zero
 aggregate, the bias of shard 0's head, and is flagged ``degraded`` —
 never a crash.
+
+The device work of a flush (the heads' gather, the star graph's
+aggregation, the head) is :attr:`InductiveEngine.program`, a
+:class:`repro_torch.graphs.CapturedStep`: one CUDA graph per bucket on
+the card (the reference's jit per bucket). Routing, the variable-length
+store lookup and scatter, the pid upload and the ``degraded`` flags are
+host work done before it, and their results are copied into the bucket's
+static inputs.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.graphs import CapturedStep
 from repro_torch.kernels import ops
 from repro_torch.kernels.autotune import KernelConfig, get_config
 
@@ -93,10 +102,14 @@ def aggregate_and_head(nb_emb: torch.Tensor, nb_mask: torch.Tensor,
 class InductiveEngine:
     """Batched on-the-fly aggregation for unseen nodes."""
 
-    def __init__(self, store, max_neighbors: int = 32):
+    def __init__(self, store, max_neighbors: int = 32,
+                 capture: bool = True, pool=None):
         self.store = store
         self.max_neighbors = int(max_neighbors)
         self._stars: Dict[int, Tuple[torch.Tensor, ...]] = {}
+        self.program = CapturedStep(self._program, store.device, pool=pool,
+                                    name="inductive") if capture \
+            else self._program
 
     def route(self, neighbors) -> Tuple[int, np.ndarray]:
         return route_neighbors(self.store.partition_of, neighbors)
@@ -121,6 +134,12 @@ class InductiveEngine:
 
         Returns (nb_emb, nb_mask, pids). Lists longer than ``M`` are
         truncated by position."""
+        return self._prepare(neighbor_lists, b_pad)[:3]
+
+    def _prepare(self, neighbor_lists: List[np.ndarray], b_pad: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray,
+                            np.ndarray]:
+        """:meth:`prepare`'s three, and the mask on the host."""
         m, e = self.max_neighbors, self.store.embed_dim
         mask = np.zeros((b_pad, m), dtype=np.float32)
         pids = np.zeros(b_pad, dtype=np.int64)
@@ -140,19 +159,33 @@ class InductiveEngine:
             nb_emb[torch.as_tensor(np.concatenate(slots)).to(device)] = \
                 self.store.lookup(flat_ids)
         return (nb_emb.view(b_pad, m, e), torch.as_tensor(mask).to(device),
-                pids)
+                pids, mask)
 
-    def infer(self, neighbor_lists: List[np.ndarray], b_pad: int
-              ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, np.ndarray]:
-        """(aggregates [b_pad, E], logits [b_pad, C], degraded [b_pad],
-        owning pids [b_pad]); only the first ``len(neighbor_lists)`` rows
-        are real queries. The aggregation runs under the bucket's
-        :meth:`kernel_config` (warmup's calls and every flush alike)."""
-        nb_emb, nb_mask, pids = self.prepare(neighbor_lists, b_pad)
-        pid_t = torch.as_tensor(pids).to(self.store.device)
-        agg, logits = aggregate_and_head(
+    def _program(self, nb_emb: torch.Tensor, nb_mask: torch.Tensor,
+                 pid_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A flush's device work at its bucket, ``nb_emb.shape[0]``: the
+        owning heads, and the aggregation under the bucket's
+        :meth:`kernel_config`."""
+        b_pad = nb_emb.shape[0]
+        return aggregate_and_head(
             nb_emb, nb_mask, self.store.head_w[pid_t],
             self.store.head_b[pid_t], star=self.star(b_pad),
             config=self.kernel_config(b_pad))
-        degraded = (nb_mask.sum(dim=1) == 0).cpu().numpy()
-        return agg, logits, degraded, pids
+
+    def infer(self, neighbor_lists: List[np.ndarray], b_pad: int,
+              compiles=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, np.ndarray]:
+        """(aggregates [b_pad, E], logits [b_pad, C], degraded [b_pad],
+        owning pids [b_pad]); only the first ``len(neighbor_lists)`` rows
+        are real queries. The outputs of a captured :attr:`program` are
+        its static outputs: read them before the bucket's next call.
+        ``compiles`` (a :class:`repro_torch.graphs.CompileLog`) counts the
+        program's compiles as ``"inductive"``."""
+        nb_emb, nb_mask, pids, mask = self._prepare(neighbor_lists, b_pad)
+        pid_t = torch.as_tensor(pids).to(self.store.device)
+        if compiles is None:
+            agg, logits = self.program(nb_emb, nb_mask, pid_t)
+        else:
+            agg, logits = compiles.call("inductive", self.program, nb_emb,
+                                        nb_mask, pid_t)
+        return agg, logits, mask.sum(axis=1) == 0, pids

@@ -71,7 +71,7 @@ def run_replay(batcher: ContinuousBatcher, workload: Workload,
                verify: bool = True) -> Dict[str, Any]:
     """Drive the batcher through the workload; returns the metrics row."""
     store = batcher.store
-    warm_buckets = batcher.warmup()
+    warm_compiles = batcher.warmup()
     answers: List[Answer] = []
     t0 = time.perf_counter()
     for node_id, neighbors in workload:
@@ -109,7 +109,8 @@ def run_replay(batcher: ContinuousBatcher, workload: Workload,
         "p99_ms": float(np.percentile(lat, 99)),
         "mean_ms": float(lat.mean()),
         "cache_hit_rate": stats["cache"]["hit_rate"],
-        "warm_buckets": warm_buckets,
+        "warm_compiles": warm_compiles,
+        "steady_state_recompiles": stats["steady_state_recompiles"],
         "flushes": stats["flushes"],
         "flush_reasons": stats["flush_reasons"],
         "served_by_source": by_source,
@@ -128,10 +129,9 @@ def run_replay(batcher: ContinuousBatcher, workload: Workload,
 
 def bench_row(row: Dict[str, Any]) -> Dict[str, Any]:
     """The bench row of one :func:`run_replay` result: the reference's
-    keys and rounding, with ``warm_buckets`` in place of its two compile
-    counts, plus the device, whether the inductive aggregation ran on the
-    CUDA kernel, and the card's ``nvidia-smi`` name and power limit (None
-    on the CPU)."""
+    keys and rounding, plus the device, whether the inductive aggregation
+    ran on the CUDA kernel, and the card's ``nvidia-smi`` name and power
+    limit (None on the CPU)."""
     gpu_name, power_limit_w = card_info(row["device"])
     return {
         "queries": row["queries"],
@@ -141,7 +141,8 @@ def bench_row(row: Dict[str, Any]) -> Dict[str, Any]:
         "p99_ms": round(row["p99_ms"], 3),
         "mean_ms": round(row["mean_ms"], 3),
         "cache_hit_rate": row["cache_hit_rate"],
-        "warm_buckets": row["warm_buckets"],
+        "warm_compiles": row["warm_compiles"],
+        "steady_state_recompiles": row["steady_state_recompiles"],
         "flushes": row["flushes"],
         "flush_reasons": row["flush_reasons"],
         "served_by_source": row["served_by_source"],

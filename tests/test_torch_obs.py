@@ -433,14 +433,8 @@ _CHUNKS = ("the reference's in-RAM Graph runs split_components and the "
            "batch assembly through its out-of-core chunk protocol "
            "(iter_csr_chunks); the out-of-core code is not ported, so the "
            "port has no chunks to count")
-_COMPILES = ("CompileLog counts XLA compiles of the jitted classify and "
-             "inductive programs; eager PyTorch compiles nothing, and the "
-             "counterpart (no CUDA-graph capture after warmup) comes with "
-             "the serving capture work")
 EXCLUDED = {"graphstore.chunks": _CHUNKS,
-            "graphstore.chunk_bytes": _CHUNKS,
-            "serving.compiles.warm": _COMPILES,
-            "serving.compiles.steady": _COMPILES}
+            "graphstore.chunk_bytes": _CHUNKS}
 GRAPHS = {"karate": {}, "arxiv-like": {"n": 2000}}
 DIMS = dict(k=4, epochs=2, classifier_epochs=2, hidden_dim=16, embed_dim=16,
             num_layers=2, classifier_hidden=32)

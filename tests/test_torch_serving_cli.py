@@ -5,8 +5,9 @@ Pins: ``replay`` trains and exports a bundle on a miss and reuses it on a
 hit (no second training), ``--rebuild`` retrains, an explicit ``--bundle``
 skips the export; served known-node labels equal the offline answer key
 (exact) and the zero-neighbour query degrades; ``--bench-json`` appends
-rows with the reference row's keys less its two compile counts, plus
-``warm_buckets``, ``device``, ``gpu_name`` and ``power_limit_w``; a bundle
+rows with the reference row's keys, its compile counts among them (a
+compile per bucket of the classifier and of the inductive program, none
+after warmup), plus ``device``, ``gpu_name`` and ``power_limit_w``; a bundle
 under another partitioner spec is a hard ``StaleServingArtifact``; each
 package's ``replay --bundle`` serves the other's bundle with no mismatch;
 the port's TCP server answers the port's and the reference's clients, with
@@ -47,8 +48,7 @@ EXPORT = ["--device", "cpu", "--dataset", "arxiv-like", "--nodes", "500",
           "--k", "4", "--epochs", "2", "--classifier-epochs", "3",
           "--hidden-dim", "16", "--embed-dim", "16"]
 REPLAY = ["replay", *EXPORT, "--queries", str(QUERIES), "--json"]
-COMPILE_KEYS = {"warm_compiles", "steady_state_recompiles"}
-PORT_ONLY_KEYS = {"warm_buckets", "device", "gpu_name", "power_limit_w"}
+PORT_ONLY_KEYS = {"device", "gpu_name", "power_limit_w"}
 
 
 def _run(fn, *args):
@@ -132,14 +132,16 @@ def test_bench_json_appends_rows_with_the_reference_keys(replayed, ref_row):
     with open(replayed["bench"]) as f:
         rows = json.load(f)
     assert len(rows) == 2
-    want = (set(ref_row) - COMPILE_KEYS) | PORT_ONLY_KEYS | {"ts"}
+    want = set(ref_row) | PORT_ONLY_KEYS | {"ts"}
     for row, printed in zip(rows, (replayed["miss"][1], replayed["hit"][1])):
         assert set(row) == want
         assert {k: v for k, v in row.items() if k != "ts"} == printed
         assert row["device"] == "cpu"
         assert row["use_kernel"] is False
         assert row["gpu_name"] is None and row["power_limit_w"] is None
-        assert row["warm_buckets"] == 7          # 1, 2, ..., 64
+        # classify and inductive at each of the buckets 1, 2, ..., 64
+        assert row["warm_compiles"] == 14
+        assert row["steady_state_recompiles"] == 0
         assert row["wall_s"] == round(row["wall_s"], 3)
         assert row["throughput_qps"] == round(row["throughput_qps"], 1)
     assert rows[0]["ts"] < rows[1]["ts"]
