@@ -3,7 +3,9 @@
 partitioner comparison, Proteins training, LM serving, the sync and stale
 training modes, the traced, checkpointed and profiled main path, the
 serving commands (``replay``, ``serve``, ``client``), the kernel
-autotuner and the compiled steps (CUDA graphs) on one NVIDIA GPU.
+autotuner, the compiled steps (CUDA graphs) and
+``repro_torch.launch.train`` (the GNN workload and LM training, qwen3_4b
+at full width) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -199,7 +201,29 @@ Phases, each fatal on failure:
    counters moved (on a captured step, the deltas
    its replays add: so the replay-aware counts that phases 3, 5, 9, 14
    and 16 gate are measured here), with both paths' counts equal and
-   kernel D 36 a decode step.
+   kernel D 36 a decode step;
+19. ``python -m repro_torch.launch.train``, on both workloads
+   (every earlier model and graph pool released first): (a) ``--workload
+   gnn`` at the reference launcher's defaults (arxiv-like at 8,000 nodes,
+   leiden_fusion, k 8, repli, GCN 3 x 128, 60 epochs, the classifier for
+   150): one component and no isolated node in every part, kernels A and
+   B launched (counters reset before the run, read after), test accuracy
+   above chance; (b) ``--workload lm --reduced`` (qwen3_4b, f32, 2
+   layers), 4 steps on the card against the same run on the CPU from the
+   same weights: losses within 1e-4 relative (no TF32), and falling; 3
+   captured steps of ``make_train_step`` bitwise equal to 3 eager ones
+   (losses, parameters, moments), remat off and on (its recomputation
+   runs inside the graph); (c) ``--workload lm --arch qwen3_4b`` at full
+   width and depth (36 layers, bf16, 4.411 B seeded parameters), batch 4,
+   seq 128, 10 captured steps: every loss finite, peak device memory
+   below 80 GB, one graph. Prints the losses, the steady step's ms (host
+   clock ending in a synchronize) and tokens/s, the step's bound (its
+   products at the bf16 dense rate plus AdamW's bytes at the memory
+   rate, ``lm_train_bound``) and the share of it reached, a profile of 2
+   replays (cuBLAS and the rest; idle share; host launches) and one
+   eager step's device ms: its gradient by the op that launched each
+   kernel (cuBLAS dense products, attention, the rest), then AdamW in a
+   window of its own. Each line names the card and its power limit.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
 directory of its own, so no user cache reaches a phase: phases 1-16
@@ -253,6 +277,9 @@ BF16_TOL = 2e-2        # kernel D in bf16, abs + rel
 LM_BF16_TOL = 0.1      # LM logits kernel vs plain, bf16: max and rms
 LM_F32_TOL = 1e-4      # the same in f32, abs + rel
 LM_ARCH = "qwen3_4b"
+LM_TRAIN_RTOL = 1e-4   # the reduced LM's losses, card against CPU, f32
+BF16_OPS_PER_S = 989e12
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "sm90")
 
 
 def check(ok, what):
@@ -2712,6 +2739,236 @@ def compiled_against_eager(dev, ds, inputs, lm_args, lm_report):
     return out
 
 
+def lm_train_bound(cfg, batch, seq):
+    """The least time one train step of ``cfg`` could take on the card:
+    its products at the dense bf16 rate plus AdamW's bytes at the memory
+    rate (AdamW waits for every gradient: the clip needs their global
+    norm). Products: every layer matmul and the head at 2 flops a
+    parameter a token a pass, over the forward, remat's second forward
+    (the layers with ``cfg.remat``; the head always: the CE chunk is
+    checkpointed) and the backward's two; attention's QK^T and PV over
+    the full S x S each sequence (the chunked attention masks, it does not
+    skip). AdamW: the parameters read and written, the gradients read, mu
+    and nu read and written in f32. Returns a dict of the terms."""
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    ffn = (3 if cfg.ffn_activation == "swiglu" else 2) * d * cfg.d_ff
+    layer = d * h * dh + 2 * d * hkv * dh + h * dh * d + ffn
+    head = d * cfg.vocab_size
+    passes = 4 if cfg.remat else 3
+    tokens = batch * seq
+    flops = (2 * passes * tokens * cfg.num_layers * layer
+             + 2 * 4 * tokens * head
+             + passes * 4 * batch * seq * seq * h * dh * cfg.num_layers)
+    p_bytes = 2 if cfg.dtype == "bfloat16" else 4
+    adamw_bytes = cfg.param_count() * (3 * p_bytes + 16)
+    products_ms = 1e3 * flops / (BF16_OPS_PER_S if p_bytes == 2
+                                 else F32_OPS_PER_S)
+    adamw_ms = 1e3 * adamw_bytes / HBM_BYTES_PER_S
+    return {"products_tflop": flops / 1e12, "products_ms": products_ms,
+            "adamw_gb": adamw_bytes / 1e9, "adamw_ms": adamw_ms,
+            "bound_ms": products_ms + adamw_ms,
+            "bound_tokens_per_s": tokens / (products_ms + adamw_ms) * 1e3}
+
+
+def lm_train_split(cfg, params, opt, batch, lr):
+    """One eager train step's device ms in two profiled windows, each
+    ended by a synchronize (``torch.profiler``): the gradient (forward,
+    remat's recomputation, backward), split by the op that launched each
+    kernel into cuBLAS's dense products (``aten::mm``), attention (its
+    batched products ``aten::bmm`` and softmax, forward and backward) and
+    the rest; then AdamW (``adamw_update_`` as ``make_train_step`` calls
+    it), whole. The step's parameters and moments are updated once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.lm import train_loss
+    from repro_torch.optim import adamw_update_
+    from repro_torch.tree import value_and_grad
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        by_op, kernels, gemm_named = {}, 0.0, 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                by_op[e.name] = by_op.get(e.name, 0.0) + \
+                    e.self_device_time_total
+            else:
+                kernels += e.time_range.elapsed_us()
+                gemm_named += e.time_range.elapsed_us() * any(
+                    w in e.name.lower() for w in GEMM_NAMES)
+        return result, by_op, kernels / 1e3, gemm_named / 1e3
+
+    def grads():
+        return value_and_grad(lambda p: train_loss(p, cfg, batch), params)
+    grads()                                 # warm
+    (loss, g), by_op, grad_ms, gemm_ms = window(grads)
+    _, _, adamw_ms, _ = window(lambda: adamw_update_(
+        g, opt, params, lr, weight_decay=0.01))
+    dense = (by_op.get("aten::mm", 0.0) + by_op.get("aten::addmm", 0.0)) / 1e3
+    attention = sum(by_op.get(k, 0.0) for k in (
+        "aten::bmm", "aten::_softmax", "aten::_softmax_backward_data")) / 1e3
+    split = {"cublas dense products": dense,
+             "attention (bmm, softmax)": attention,
+             "rest of the gradient": grad_ms - dense - attention,
+             "adamw": adamw_ms}
+    check(dense > 0 and adamw_ms > 0 and bool(torch.isfinite(loss)),
+          f"the eager LM train step's profile names no products or no "
+          f"AdamW, or its loss is not finite: {split}")
+    return {"device_ms": grad_ms + adamw_ms,
+            "gemm_named_kernels_ms": gemm_ms, "device_ms_by_part": split}
+
+
+def launch_train_on_card(dev, smi):
+    """Phase 19: ``repro_torch.launch.train`` on both workloads. Returns
+    the phase's rows."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.lm import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi,
+           "allocated_gb_at_start": torch.cuda.memory_allocated(dev) / 1e9,
+           "reserved_gb_at_start": torch.cuda.memory_reserved(dev) / 1e9}
+    print(f"phase 19 [{smi}]: {out['allocated_gb_at_start']:.3f} GB "
+          f"allocated, {out['reserved_gb_at_start']:.3f} GB reserved at "
+          f"the start", flush=True)
+
+    # (a) the paper's workload at the reference launcher's defaults
+    args = launcher.parser().parse_args(["--workload", "gnn"])
+    ops.reset_launch_counts()
+    gnn = launcher.train_gnn(args)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    quality = gnn["partition_quality"]
+    out["gnn"] = {**{k: gnn[k] for k in (
+        "dataset", "partitioner", "k", "scheme", "model", "partition_time_s",
+        "train_time_s", "results", "total_s", "partition_quality")},
+        "nodes": args.nodes, "epochs": args.epochs,
+        "launches": {k: launches[k] for k in (
+            "fused_gcn_layer_need_agg", "fused_gcn_layer", "csr_aggregate")}}
+    print(f"phase 19 (a) [{smi}] launch.train --workload gnn at the "
+          f"reference's defaults: {json.dumps(out['gnn'])}", flush=True)
+    check(quality["total_isolated"] == 0 and quality["max_components"] == 1,
+          f"phase 19 (a): a part is not one component or has isolated "
+          f"nodes: {quality}")
+    check(launches["fused_gcn_layer_need_agg"] > 0
+          and launches["csr_aggregate"] > 0,
+          f"phase 19 (a): kernels A and B did not both launch: {launches}")
+    check(np.isfinite(gnn["results"]["test"])
+          and gnn["results"]["test"] > 1 / 40,
+          f"phase 19 (a): test accuracy {gnn['results']['test']} does not "
+          f"beat chance")
+
+    # (b) the reduced LM: the card against the CPU, captured against eager
+    reduced = ["--workload", "lm", "--arch", LM_ARCH, "--reduced",
+               "--steps", "4"]
+    lr = launcher.parser().parse_args(reduced).lr
+    cfg = get_config(LM_ARCH).reduced()
+    seeded = init_model(cfg, "cpu", seed=0)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        rep, _ = launcher.run_lm(
+            launcher.parser().parse_args(reduced + ["--device", device.type]),
+            params=tree_map(lambda x: x.to(device, copy=True), seeded))
+        runs[name] = rep["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"], runs["cpu"]))
+    bitwise = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        got = {}
+        for capture in (True, False):
+            params = init_model(c, dev, seed=0)
+            opt = adamw_init(params)
+            batch = make_batch(c, 4, 128, seed=0, device=dev)
+            step = make_train_step(c, lr=lr, device=dev, capture=capture)
+            losses = torch.stack([step(params, opt, batch)[2].clone()
+                                  for _ in range(3)])
+            got[capture] = [losses] + tree_leaves(
+                (params, opt.mu, opt.nu, opt.step))
+        bitwise[f"remat={remat}"] = all(
+            torch.equal(a, b) for a, b in zip(got[True], got[False]))
+        del got, params, opt, step
+    out["reduced"] = {"losses_card": runs["card"], "losses_cpu": runs["cpu"],
+                      "max_rel_diff": rel, "rtol": LM_TRAIN_RTOL,
+                      "captured_equals_eager_3_steps": bitwise}
+    print(f"phase 19 (b) [{smi}] reduced {LM_ARCH} (f32, 2 layers), 4 steps "
+          f"on the card against the CPU from the same weights, and 3 "
+          f"captured steps against 3 eager ones: {json.dumps(out['reduced'])}",
+          flush=True)
+    check(rel <= LM_TRAIN_RTOL, f"phase 19 (b): the card's losses differ "
+                                f"from the CPU's by {rel} (relative)")
+    check(runs["card"][-1] < runs["card"][0],
+          f"phase 19 (b): the loss did not fall: {runs['card']}")
+    check(all(bitwise.values()), f"phase 19 (b): captured steps differ "
+                                 f"from eager ones: {bitwise}")
+
+    # (c) qwen3_4b at full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = launcher.parser().parse_args(["--workload", "lm", "--arch", LM_ARCH,
+                                       "--steps", "10"])
+    rep, state = launcher.run_lm(full)
+    cfg, params, opt, batch = (state[k] for k in ("cfg", "params", "opt",
+                                                  "batch"))
+    tokens = full.batch * full.seq
+    step_ms = 1e3 * tokens / rep["steady_tokens_per_s"]
+    bound = lm_train_bound(cfg, full.batch, full.seq)
+    row = {"arch": rep["arch"], "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "params_b": cfg.param_count() / 1e9, "batch": full.batch,
+           "seq": full.seq, "lr": full.lr, "losses": rep["losses"],
+           "first_loss": rep["first_loss"], "last_loss": rep["last_loss"],
+           "tokens_per_s": rep["tokens_per_s"],
+           "steady_tokens_per_s": rep["steady_tokens_per_s"],
+           "step_ms": step_ms, "first_step_s": rep["first_step_s"],
+           "compiles": state["step"].compiles,
+           "peak_memory_gb": rep["peak_memory_bytes"] / 1e9,
+           "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9,
+           "bound": bound, "bound_share": bound["bound_ms"] / step_ms}
+    print(f"phase 19 (c) [{smi}] launch.train --workload lm --arch {LM_ARCH}"
+          f" (full width): {json.dumps(row)}", flush=True)
+    check(all(np.isfinite(rep["losses"])),
+          f"phase 19 (c): a loss is not finite: {rep['losses']}")
+    check(rep["peak_memory_bytes"] < 80e9,
+          f"phase 19 (c): peak device memory {row['peak_memory_gb']:.2f} GB")
+    check(state["step"].compiles == 1,
+          f"phase 19 (c): {state['step'].compiles} graphs for one shape")
+    captured = state["step"]
+    row["profile_captured"] = profile_step(
+        lambda: captured(params, opt, batch),
+        f"phase 19 (c) [{smi}] {LM_ARCH} train step, captured")
+    del captured
+    state["step"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["profile_eager"] = lm_train_split(cfg, params, opt, batch, full.lr)
+    print(f"phase 19 (c) [{smi}] one eager step's device split: "
+          f"{json.dumps(row['profile_eager'])}; bound "
+          f"{bound['bound_ms']:.2f} ms ({bound['products_ms']:.2f} products "
+          f"+ {bound['adamw_ms']:.2f} AdamW), step {step_ms:.2f} ms: "
+          f"{row['bound_share']:.3f} of it", flush=True)
+    out["full"] = row
+    del state, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3048,7 +3305,9 @@ def main():
         owner = "B" if k["name"].startswith("fused_gcn") else "A"
         if k["name"] != "edge_dot":
             k["device_launches_per_call"] = per_call[owner]
-    del trained, result, batcher, store, on_card
+    del trained, result, batcher, store, on_card, tens, params, csr, h, \
+        inv, w0, b0, g, gen, rev_w, rev_dst, sp, out, agg, agg_ref, ref, \
+        nb_emb, nb_mask, pid_t, head_w, head_b, logits, p_agg, p_logits
     torch.cuda.empty_cache()
 
     # -- 9. the LM serving main path ---------------------------------------
@@ -3122,6 +3381,16 @@ def main():
     compiled = compiled_against_eager(dev, main_ds, halo_inputs, lm_args,
                                       lm_report)
     tune_dir.cleanup()
+
+    # -- 19. launch.train, both workloads ------------------------------------
+    torch.cuda.empty_cache()
+    training = launch_train_on_card(dev, smi)
+    for k in kernels:
+        if k["name"] in ("fused_gcn_layer_need_agg",
+                         "csr_aggregate_transpose"):
+            k["launches_phase19_gnn"] = training["gnn"]["launches"][
+                "fused_gcn_layer_need_agg" if k["name"].startswith("fused")
+                else "csr_aggregate"]
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
@@ -3144,7 +3413,10 @@ def main():
             "winner", "winner_ms", "fallback_ms", "candidates", "tune_s",
             "stage_s", "ms_per_epoch", "phase5_ms_per_epoch", "accuracy",
             "phase5_accuracy", "replay", "sweep", "phase_s")},
-        "phase18": compiled}))
+        "phase18": compiled,
+        "phase19": {k: v for k, v in training.items() if k != "full"},
+        "phase19_full": {k: v for k, v in training["full"].items()
+                         if k != "losses"}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

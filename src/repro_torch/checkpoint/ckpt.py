@@ -75,7 +75,9 @@ def restore_checkpoint(directory: str, like: Tree,
                        step: Optional[int] = None) -> Tree:
     """Restore into the structure of ``like`` (leaf count and shapes
     checked); each leaf comes back on its ``like`` leaf's device and in
-    its dtype. ``step`` defaults to the latest."""
+    its dtype. A bf16 leaf is stored as its raw bits (``np.load`` gives
+    2-byte void) and read back as such. ``step`` defaults to the
+    latest."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -93,8 +95,11 @@ def restore_checkpoint(directory: str, like: Tree,
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != "
                              f"{tuple(ref.shape)}")
-        loaded.append(torch.as_tensor(arr).to(device=ref.device,
-                                              dtype=ref.dtype))
+        if arr.dtype.kind == "V" and ref.dtype == torch.bfloat16:
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.as_tensor(arr)
+        loaded.append(t.to(device=ref.device, dtype=ref.dtype))
     return _fill(like, iter(loaded))
 
 

@@ -50,7 +50,7 @@ from repro_torch.core import (NodeDataset, PartitionBatch,
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.graphs import CapturedStep
 from repro_torch.optim import OptState, adamw_init, adamw_update
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map, value_and_grad
 
 from .infer import (Params, PartitionTensors, compute_embeddings,
                     gather_partition_tensors, init_partition_models,
@@ -108,16 +108,6 @@ def partition_loss(params: Params, cfg: GNNConfig, tensors: PartitionTensors,
     return loss_fn(logits, tensors.labels[p], tensors.train_mask[p])
 
 
-def _loss_and_grads(loss_fn: Callable[[Params], torch.Tensor],
-                    params: Params) -> Tuple[torch.Tensor, Params]:
-    """``loss_fn(params)`` and its gradient tree; ``params`` stay as they
-    are (the gradient is taken with respect to detached copies)."""
-    params = tree_map(lambda x: x.detach().requires_grad_(), params)
-    loss = loss_fn(params)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
-
-
 def local_train_step(params: Params, opt: OptState,
                      tensors: PartitionTensors, p: int, cfg: GNNConfig,
                      multilabel: bool, lr: float,
@@ -126,7 +116,7 @@ def local_train_step(params: Params, opt: OptState,
     """One AdamW step of partition ``p``'s model (unstacked parameters and
     state): the counterpart of the reference's single-partition step.
     Returns ``(params, opt, loss)``."""
-    loss, grads = _loss_and_grads(
+    loss, grads = value_and_grad(
         lambda pp: partition_loss(pp, cfg, tensors, p, multilabel, gen),
         params)
     params, opt = adamw_update(grads, opt, params, lr, weight_decay=0.0)
@@ -143,7 +133,7 @@ def stacked_train_step(params: Params, opt: OptState, tensors: PartitionTensors,
     partition. Returns ``(params, opt, losses [k])``."""
     losses, grads = [], []
     for p in range(tensors.k):
-        loss, g = _loss_and_grads(
+        loss, g = value_and_grad(
             lambda pp: partition_loss(pp, cfg, tensors, p, multilabel,
                                       gens[p]),
             partition_params(params, p))
@@ -306,7 +296,7 @@ def make_classifier_step(x: torch.Tensor, y: torch.Tensor,
     loss_fn = sigmoid_bce if multilabel else softmax_xent
 
     def classifier(params, opt):
-        _, grads = _loss_and_grads(
+        _, grads = value_and_grad(
             lambda p: loss_fn(mlp_forward(p, x), y, train_mask), params)
         return adamw_update(grads, opt, params, lr)
     if not capture:

@@ -11,7 +11,10 @@ at a new signature
    *borrowed* argument's tensors are used where they are, by address);
 2. runs the function eagerly on a side stream, as warm-up (libraries
    load, kernel D plans its shape and allocates its workspace, the
-   autotuner's memo fills), outside any graph;
+   autotuner's memo fills), outside any graph; a step that writes
+   borrowed state in place (an optimizer step) names a ``warmup``
+   function of the same arguments that leaves that state as it was, so
+   the first call steps once;
 3. captures the function on the static buffers into a
    ``torch.cuda.CUDAGraph``, in the step's memory pool;
 4. replays the graph once.
@@ -169,12 +172,16 @@ class CapturedStep:
     values ``fn`` returns at the same output positions. ``borrow``:
     argument positions whose tensors are bound by address (large inputs
     that stay put, or a cache written in place); on the card a later call
-    at the signature must pass the same tensors. ``name`` labels errors."""
+    at the signature must pass the same tensors. ``warmup``: run in place
+    of ``fn`` for the warm-up before a capture (default ``fn``). ``name``
+    labels errors."""
 
     def __init__(self, fn: Callable, device, pool=None,
                  donate: Sequence[int] = (), borrow: Sequence[int] = (),
-                 name: Optional[str] = None):
+                 name: Optional[str] = None,
+                 warmup: Optional[Callable] = None):
         self.fn = fn
+        self.warmup = warmup or fn
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.pool = pool
@@ -285,7 +292,7 @@ class CapturedStep:
         args, kwargs = _unflatten(entry.spec, iter(entry.statics))
         try:
             with torch.cuda.stream(side):
-                self.fn(*args, **kwargs)            # warm-up, eager
+                self.warmup(*args, **kwargs)        # warm-up, eager
             current.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             for own, kind in zip(entry.statics, entry.kinds):

@@ -6,8 +6,8 @@ lengths. The prompts, their lengths and the buckets come from the same
 numpy seed, drawn in the same order, as the reference launcher's, and the
 report has its keys.
 
-The decode step (:func:`repro_torch.models.lm.serve_step`, then the
-argmax and the length's increment) is a
+The decode step (:func:`repro_torch.launch.steps.make_decode_step`, then
+the argmax and the length's increment) is a
 :class:`repro_torch.graphs.CapturedStep`: one CUDA graph per bucket on
 the card, the bucket's grown cache bound by address (written in place by
 the graph), the token and lengths donated. ``decode_compiles`` counts its
@@ -32,7 +32,8 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device, synchronize
 from ..graphs import CapturedStep
-from ..models.lm import grow_cache, init_model, prefill_step, serve_step
+from ..models.lm import grow_cache, init_model
+from .steps import make_decode_step, make_prefill_step
 
 MIN_PREFILL_BUCKET = 8
 
@@ -51,8 +52,10 @@ def make_decode(params: Dict, cfg, device: torch.device,
     lengths + 1, logits [B, V])``: one greedy decode step, writing the
     cache in place; a :class:`CapturedStep` (tokens and lengths donated,
     the cache borrowed) or, with ``capture=False``, eager."""
+    step = make_decode_step(cfg)
+
     def decode(tokens, lengths, cache):
-        logits, _ = serve_step(params, cfg, tokens, cache, lengths)
+        logits, _ = step(params, tokens, cache, lengths)
         return (logits.argmax(dim=-1).to(torch.int32)[:, None], lengths + 1,
                 logits)
     if not capture:
@@ -76,6 +79,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
     if params is None:
         params = init_model(cfg, device, seed=args.seed)
     decode = make_decode(params, cfg, device, capture)
+    prefill = make_prefill_step(cfg)
 
     lengths = rng.integers(args.min_prompt, args.max_prompt + 1,
                            args.requests)
@@ -93,7 +97,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
             batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
                                                device=device)}
             t0 = time.perf_counter()
-            logits, cache, _ = prefill_step(params, cfg, batch)
+            logits, cache, _ = prefill(params, batch)
             cache = grow_cache(cache, s_b + args.max_new)
             # per-request lengths start at each prompt's own length, so
             # decode masks (and overwrites) the bucket's padding

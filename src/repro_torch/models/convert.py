@@ -4,11 +4,13 @@ The tests run both packages on the same weights: the reference's
 ``init_model`` tree, taken to numpy leaf by leaf, goes through
 :func:`params_from_reference`. Its homogeneous stack is scan-stacked
 (``layers`` leaves carry a leading L axis); the port keeps one dict per
-layer, each leaf a view of one stacked tensor.
+layer, each leaf a view of one stacked tensor. :func:`params_to_reference`
+goes back: the port's params as the reference's numpy tree, which the
+tests compare with the reference's and the LM checkpoint stores.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -55,3 +57,36 @@ def cache_from_reference(tree: Dict, device: torch.device) -> Dict:
     """The reference's decode cache (numpy leaves, ``layers`` k/v stacked
     ``[L, B, S, Hkv, Dh]``) as the port's, which has the same layout."""
     return {"first_dense": [], "layers": _tree(tree["layers"], device)}
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array. numpy has no bf16 of its own: a
+    bf16 tensor comes back as its raw bits, 2-byte void (``V2``), the
+    dtype that ``np.load`` gives a bf16 array saved by either package."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _numpy_tree(x: Any) -> Any:
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    return numpy_from_tensor(x)
+
+
+def _stack(layers: List[Dict]) -> Dict:
+    return {k: _stack([lp[k] for lp in layers])
+            if isinstance(layers[0][k], dict)
+            else np.stack([lp[k] for lp in layers])
+            for k in layers[0]}
+
+
+def params_to_reference(params: Dict, cfg: ModelConfig) -> Dict:
+    """The port's params (one dict per layer) as the reference's: numpy
+    leaves, ``layers`` scan-stacked to ``[L, ...]``. The inverse of
+    :func:`params_from_reference`."""
+    check_supported(cfg)
+    tree = _numpy_tree({k: v for k, v in params.items() if k != "layers"})
+    tree["layers"] = _stack([_numpy_tree(lp) for lp in params["layers"]])
+    return tree

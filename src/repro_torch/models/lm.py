@@ -1,4 +1,5 @@
-"""Decoder-only dense language model: init, prefill, KV cache, decode.
+"""Decoder-only dense language model: init, the train forward and its
+chunked loss, prefill, KV cache, decode.
 
 Structure (the reference's names, one entry per layer instead of its
 scan-stacked leaves)::
@@ -15,15 +16,25 @@ The cache keeps the reference's stacked layout, so layer ``i`` attends over
 the contiguous view ``cache["layers"]["k"][i]``. ``serve_step`` writes each
 new K/V row into it in place.
 
+Training (:func:`train_loss`) loops over the layers, each wrapped in
+:func:`_remat` when ``cfg.remat`` is set, and takes the next-token loss in
+sequence chunks (:func:`chunked_ce_loss`): each chunk's ``[B, c, V]``
+logits are computed, reduced and dropped, and recomputed in the backward,
+so no more than one chunk's logits ever exists.
+
 This slice ports the homogeneous attention stack (dense and GQA families:
 qwen3, qwen1.5, glm4, nemotron). Experts, MLA, block patterns (SSM,
 hybrid), encoders and modality frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention_decode, attention_train, init_attention
@@ -33,6 +44,11 @@ from .layers import (apply_norm, ffn_forward, init_ffn, init_norm, normal,
 
 Params = Dict
 Cache = Dict
+LOSS_CHUNK = 512
+# the products the "dots" policy keeps: matmuls without batch dims, as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable (x @ W folds
+# to mm; attention's einsums are batched, bmm, and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -84,6 +100,118 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
 
 def _head_weight(params: Params) -> torch.Tensor:
     return params["head"] if "head" in params else params["embed"].t()
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(f: Callable, cfg: ModelConfig) -> Callable:
+    """Per-layer activation checkpointing with the configured policy:
+    ``"full"`` keeps only the layer's input, ``"dots"`` also its
+    matmuls' outputs. No RNG state is kept (the LM has no dropout), so a
+    captured step never reads a generator's state."""
+    if not cfg.remat:
+        return f
+    kwargs = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, f, **kwargs)
+
+
+def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       memory: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over the whole sequence; returns ``(x, aux_loss)``. The
+    ported kind is a dense attention layer, whose aux loss is 0."""
+    if kind != "attn" or moe or memory is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense attention layers train in the port "
+            f"(got kind={kind!r}, moe={moe}, memory={memory is not None})")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
+                            positions)
+    x = x + ffn_forward(p["ffn"], cfg, apply_norm(p["ln2"], x))
+    return x, aux
+
+
+def model_hidden_train(params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token ids ``[B, S]`` -> ``(final hidden states [B, S, d], aux
+    loss)``. The embedding lookup is ``F.embedding``, whose backward (the
+    step's one scatter) is deterministic."""
+    check_supported(cfg)
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for lp in params["layers"]:
+        f = _remat(functools.partial(_apply_layer_train, lp, cfg, "attn",
+                                     False), cfg)
+        x, a = f(x, positions)
+        aux_total = aux_total + a
+    return apply_norm(params["final_norm"], x), aux_total
+
+
+def _chunk_nll(h: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """The masked NLL sum of one chunk: ``h [B, c, d]``."""
+    logits = (h @ w_head).float()                       # [B, c, V]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = LOSS_CHUNK) -> torch.Tensor:
+    """Next-token CE, the masked mean over ``[B, S]``, in chunks of
+    ``chunk`` positions (the last padded, its padding masked), as the
+    reference's scan. Each chunk is checkpointed when autograd records:
+    its ``[B, c, V]`` logits are dropped after the forward and recomputed
+    in the backward, one chunk at a time. The gold logit is a gather (the
+    reference's one-hot sum keeps a vocab-sharded axis sharded; on one
+    device both give the same number)."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        args = (h[:, sl], w_head, labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            nll = checkpoint(_chunk_nll, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            nll = _chunk_nll(*args)
+        tot = tot + nll
+        cnt = cnt + mask[:, sl].sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """batch: ``tokens [B, S]``, ``loss_mask [B, S]``. Position ``i``
+    predicts token ``i + 1``; the last position has no label and is
+    masked."""
+    tokens = batch["tokens"]
+    h, aux = model_hidden_train(params, cfg, tokens)
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = F.pad(batch["loss_mask"][:, 1:], (0, 1)).float()
+    loss = chunked_ce_loss(h, _head_weight(params), labels, mask)
+    return loss + cfg.router_aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ pytrees are laid out. Dict keys are walked in sorted order, as
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -28,3 +28,15 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
+
+
+def value_and_grad(fn: Callable[[Tree], torch.Tensor], tree: Tree
+                   ) -> Tuple[torch.Tensor, Tree]:
+    """``fn(tree)`` (detached) and its gradient tree. The gradient is
+    taken with respect to detached aliases of the leaves, so ``tree``
+    stays as it is (leaves that are views of one stacked tensor too)."""
+    with torch.enable_grad():
+        live = tree_map(lambda x: x.detach().requires_grad_(), tree)
+        value = fn(live)
+        grads = iter(torch.autograd.grad(value, tree_leaves(live)))
+    return value.detach(), tree_map(lambda _: next(grads), live)

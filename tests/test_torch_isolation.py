@@ -9,7 +9,10 @@
   passes ``device="cpu"``, the training pipeline and its CLI
   (``python -m repro_torch.pipeline run``, with ``--torch-profile`` too:
   no profile is written on a fallback device) too, and the LM's
-  (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``); ``chip_smoke.py`` exits
+  (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``),
+  the training CLI (``python -m repro_torch.launch.train``, both
+  workloads, which loads neither ``jax`` nor ``repro`` either) and the LM's
+  train step; ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
   repository is absent.
 """
@@ -73,6 +76,8 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.models.convert", "repro_torch.configs.qwen3_4b",
             "repro_torch.kernels.flash_decode",
             "repro_torch.launch.serve"} <= set(got["mods"])
+    assert {"repro_torch.launch.train", "repro_torch.launch.steps",
+            "repro_torch.optim.schedules"} <= set(got["mods"])
     assert {"repro_torch.core.registry", "repro_torch.core.partitioners",
             "repro_torch.core.spec", "repro_torch.core.metrics",
             "repro_torch.pipeline.artifacts",
@@ -193,11 +198,16 @@ def test_torch_profile_on_the_cuda_default_raises_without_a_gpu(tmp_path):
 
 def test_lm_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import lm
     cfg = get_config("qwen3_4b").reduced()
     for call in (lambda: lm.init_model(cfg), lambda: lm.init_cache(cfg, 1, 8),
-                 lambda: serve.main(["--reduced", "--requests", "1"])):
+                 lambda: serve.main(["--reduced", "--requests", "1"]),
+                 lambda: steps.make_train_step(cfg),
+                 lambda: train.main(["--workload", "lm", "--reduced",
+                                     "--steps", "1"]),
+                 lambda: train.main(["--workload", "gnn", "--nodes", "200",
+                                     "--k", "2", "--epochs", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert lm.init_cache(cfg, 1, 8, "cpu")["layers"]["k"].shape[2] == 8
@@ -220,6 +230,51 @@ def test_serve_cli_needs_a_gpu_unless_told_cpu(device):
         assert out.returncode == 0, out.stderr
         report = json.loads(out.stdout)
         assert report["finite"] and report["device"] == "cpu"
+
+
+TRAIN_RUNNER = """
+import json, runpy, sys
+sys.path[:0] = [{src!r}]
+sys.argv = ["python -m repro_torch.launch.train"] + {argv!r}
+code = None
+try:
+    runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code
+finally:
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+    print(json.dumps({{"code": code, "bad": bad}}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("workload", ["gnn", "lm"])
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_train_cli_needs_a_gpu_unless_told_cpu_and_loads_no_reference(
+        workload, device):
+    """``python -m repro_torch.launch.train`` raises without a GPU unless
+    given ``--device cpu``, runs with it, and loads neither ``jax`` nor
+    ``repro``."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = (["--workload", "gnn", "--nodes", "300", "--k", "2", "--epochs",
+             "2", "--hidden", "16"] if workload == "gnn" else
+            ["--workload", "lm", "--reduced", "--steps", "2", "--seq", "32"])
+    if device:
+        argv += ["--device", device]
+    out = subprocess.run(
+        [sys.executable, "-c", TRAIN_RUNNER.format(
+            src=os.path.join(ROOT, "src"), argv=argv)],
+        capture_output=True, text=True, timeout=180, env=env, cwd=ROOT)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    if device is None:
+        assert out.returncode != 0 and result["code"] is None
+        assert "device='cpu'" in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        report = json.loads(out.stdout[:out.stdout.rindex("\n{")])
+        assert report["workload"] == workload
 
 
 # ``python -m repro_torch.serving`` in a fresh interpreter; it prints which
