@@ -5,7 +5,8 @@ training modes, the traced, checkpointed and profiled main path, the
 serving commands (``replay``, ``serve``, ``client``), the kernel
 autotuner, the compiled steps (CUDA graphs) and
 ``repro_torch.launch.train`` (the GNN workload and LM training, qwen3_4b
-at full width) on one NVIDIA GPU.
+at full width) and the MoE family (qwen2_moe_a2p7b served at full width,
+trained reduced) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -223,7 +224,34 @@ Phases, each fatal on failure:
    replays (cuBLAS and the rest; idle share; host launches) and one
    eager step's device ms: its gradient by the op that launched each
    kernel (cuBLAS dense products, attention, the rest), then AdamW in a
-   window of its own. Each line names the card and its power limit.
+   window of its own. Each line names the card and its power limit;
+20. the MoE family, ``qwen2_moe_a2p7b`` (every earlier model released
+   first; the allocated GB printed at the start): (a)
+   ``launch.serve.serve`` at full width (24 layers, d_model 2048, 16/16
+   heads, 60 experts top-4 + 4 shared of d_ff 1408, bf16, 14.3 B seeded
+   parameters) on phase 9's requests: logits finite, one decode graph a
+   bucket, kernel D 24 x 32 x (buckets) launches (counters reset before,
+   read after); prefill s, peak GB, and the largest bucket's ms a decode
+   step and tokens/s beside the step's bound (``moe_decode_bound``: the
+   bytes it must move, the routed experts its rows chose counted once,
+   over 3.35 TB/s); (b) one step of that bucket through kernel D against
+   the plain attention on the plain path's expert choices, at phase 9's
+   bf16 tolerance, and on its own choices (printed: a bf16 rounding can
+   swap a row's k-th expert); (c) that bucket's
+   32 decode steps captured and eager from one prefill, tokens and caches
+   bitwise equal; a 4-step profile of the captured step by kernel (kernel
+   D, the experts' gather, the router's softmax and top-k, cuBLAS, the
+   rest) and one eager step by op (routed ``bmm``, dense ``mm``); (d) the
+   reduced family (f32, 2 layers, 4 experts top-2, 1 shared), the card
+   against the CPU from the same weights: ``train_loss`` and its gradient
+   at 1e-4, prefill then decode against the train forward at capacity
+   factor 8 (no drops) at 1e-4; ``launch.train --workload lm --arch
+   qwen2_moe_a2p7b --reduced`` on both, 4 captured steps (finite, aux
+   loss > 0, one graph; the card's losses beside the CPU's, printed), and
+   3 captured train steps bitwise equal to 3 eager ones; (e) kernel D at
+   the MoE serving shape, G = H / Hkv = 1 (H 16, D 128, bf16), against
+   its plain version, timed beside its bound and
+   ``scaled_dot_product_attention``.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
 directory of its own, so no user cache reaches a phase: phases 1-16
@@ -280,6 +308,16 @@ LM_ARCH = "qwen3_4b"
 LM_TRAIN_RTOL = 1e-4   # the reduced LM's losses, card against CPU, f32
 BF16_OPS_PER_S = 989e12
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "sm90")
+MOE_ARCH = "qwen2_moe_a2p7b"
+MOE_TOL = 1e-4         # the reduced MoE, card against CPU, f32 (abs + rel
+                       # for logits; of each leaf's largest for gradients)
+# device kernels of an MoE decode step by name, first match wins
+MOE_KERNELS = (("kernel D", ("flash_decode",)),
+               ("router softmax / top-k", ("softmax", "topk", "radix",
+                                           "sort", "kth")),
+               ("gather (expert weights, embedding rows)",
+                ("indexselect", "index_elementwise", "gather")),
+               ("cuBLAS products", GEMM_NAMES + ("gemv",)))
 
 
 def check(ok, what):
@@ -2969,6 +3007,471 @@ def launch_train_on_card(dev, smi):
     return out
 
 
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None):
+    """Record each MoE layer's expert choice (``record``: a list to append
+    ``[B, K]`` indices to, in call order) or replay recorded ones
+    (``replay``: the gates are this call's own probabilities at the
+    replayed experts, renormalised as the router does)."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod._route
+    chosen = iter(replay or ())
+
+    def routed(p, c, x):
+        probs, gate, idx = route(p, c, x)
+        if replay is not None:
+            idx = next(chosen)
+            gate = probs.gather(-1, idx)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        if record is not None:
+            record.append(idx)
+        return probs, gate, idx
+    moe_mod._route = routed
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def moe_kernel_vs_plain_step(params, cfg, cache, tokens, lengths, what):
+    """``kernel_vs_plain_step`` for an MoE model. A bf16 rounding in
+    attention can swap a row's k-th expert for the next one, which moves
+    that row's logits by far more than the rounding: so kernel D and the
+    floor (the plain version in the reference kernel's order) run on the
+    plain path's expert choices, and are held at ``LM_BF16_TOL`` as
+    qwen3_4b's step is; kernel D on its own choices is printed beside
+    them, with the (layer, row) choices that differ."""
+    import torch
+    from repro_torch.kernels import flash_decode as kernel_d
+    from repro_torch.models.lm import serve_step
+    plain_routes, own_routes = [], []
+    with torch.no_grad():
+        with decode_attention(kernel_d.plain), moe_routing(plain_routes):
+            ref, _ = serve_step(params, cfg, tokens, cache, lengths)
+        with decode_attention(plain_q_scaled), moe_routing(
+                replay=plain_routes):
+            floor, _ = serve_step(params, cfg, tokens, cache, lengths)
+        with moe_routing(replay=plain_routes):
+            got, _ = serve_step(params, cfg, tokens, cache, lengths)
+        with moe_routing(own_routes):
+            free, _ = serve_step(params, cfg, tokens, cache, lengths)
+    check(all(bool(torch.isfinite(t).all()) for t in (ref, got, free)),
+          f"non-finite {what} logits")
+    err, floor_err = logits_diff(got, ref), logits_diff(floor, ref)
+    free_err = logits_diff(free, ref)
+    swapped = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                      .sum()) for a, b in zip(plain_routes, own_routes,
+                                              strict=True))
+    row = {"max_err_over_max": err[0], "rms_err_over_rms": err[1],
+           "floor_max_over_max": floor_err[0],
+           "floor_rms_over_rms": floor_err[1],
+           "own_routing_max_over_max": free_err[0],
+           "own_routing_rms_over_rms": free_err[1],
+           "own_routing_swapped_layer_rows": swapped,
+           "layer_rows": cfg.num_layers * tokens.shape[0],
+           "largest_logit": float(ref.abs().max()),
+           "greedy_agree": float((got.argmax(-1) == ref.argmax(-1))
+                                 .float().mean()),
+           "own_routing_greedy_agree": float(
+               (free.argmax(-1) == ref.argmax(-1)).float().mean()),
+           "dtype": cfg.dtype, "tol": LM_BF16_TOL}
+    print(f"{what}: kernel D vs plain logits {json.dumps(row)}", flush=True)
+    check(err[0] <= LM_BF16_TOL and err[1] <= LM_BF16_TOL,
+          f"{what}: logits through kernel D disagree with the plain path "
+          f"on the same expert choices: {row}")
+    return row
+
+
+def moe_decode_bound(params, cfg, tokens, cache, lengths):
+    """The least time one MoE decode step could take on the card, from this
+    step's own routing: the bytes it must read (every layer's attention,
+    norms, router and shared experts, the routed experts its rows chose,
+    the cache up to each row's length with the new row, the head and the
+    tokens' embedding rows) and write (the logits), over 3.35 TB/s, or
+    its products at the bf16 dense rate, the larger. The routing is read
+    off one eager step (it writes the cache row the next step writes
+    again). Returns the terms."""
+    import torch
+    from repro_torch.models.lm import serve_step
+    from repro_torch.tree import tree_leaves
+    chosen = []
+    with torch.no_grad(), moe_routing(chosen):
+        serve_step(params, cfg, tokens, cache, lengths)
+    torch.cuda.synchronize()
+
+    def size(t):
+        return t.numel() * t.element_size()
+    rows = tokens.shape[0]
+    routed = ("w_gate", "w_up", "w_out")
+    touched = [int(torch.unique(i).numel()) for i in chosen]
+    weights = active = 0
+    for lp, n in zip(params["layers"], touched, strict=True):
+        ffn = lp["ffn"]
+        dense = sum(size(t) for t in tree_leaves(
+            {k: v for k, v in lp.items() if k != "ffn"}))
+        dense += sum(size(t) for t in tree_leaves(
+            {k: v for k, v in ffn.items() if k not in routed}))
+        expert = sum(size(ffn[k][0]) for k in routed)
+        weights += dense + n * expert
+        active += dense + cfg.top_k * expert
+    ck = cache["layers"]["k"]
+    filled = int((lengths + 1).sum())
+    kv = 2 * cfg.num_layers * filled * ck.shape[3] * ck.shape[4] \
+        * ck.element_size()
+    head = size(params["head"]) + rows * cfg.d_model \
+        * params["embed"].element_size()
+    logits = rows * cfg.vocab_size * 4
+    nbytes = weights + kv + head + logits
+    # 2 flops a weight element a row, attention's two products over the
+    # filled rows
+    ops = 2 * rows * (active + size(params["head"])) \
+        / params["head"].element_size() + 4 * filled * cfg.num_heads \
+        * cfg.head_dim * cfg.num_layers
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return {"bytes_gb": nbytes / 1e9, "weights_gb": weights / 1e9,
+            "kv_gb": kv / 1e9, "head_gb": head / 1e9,
+            "experts_touched_per_layer": touched,
+            "gflop": ops / 1e9, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def profile_moe_decode(step, steps=4):
+    """Device ms per decode step by kernel name (``MOE_KERNELS``, the rest
+    apart) over ``steps`` calls of ``step`` (``torch.profiler``), the idle
+    share, kernels and host launches a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split = {name: 0.0 for name, _ in MOE_KERNELS}
+    split["the rest (elementwise, norms, RoPE, copies)"] = 0.0
+    n = host = n_d = 0
+    top = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host += any(w in e.name for w in HOST_LAUNCHES)
+            continue
+        n += 1
+        name = e.name.lower()
+        us = e.time_range.elapsed_us()
+        key = next((k for k, words in MOE_KERNELS
+                    if any(w in name for w in words)),
+                   "the rest (elementwise, norms, RoPE, copies)")
+        split[key] += us
+        n_d += key == "kernel D"
+        top[e.name[:80]] = top.get(e.name[:80], 0.0) + us
+    busy = sum(split.values())
+    row = {"wall_ms_per_step": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "idle_share": 1 - busy / wall_us, "kernels_per_step": n / steps,
+           "host_launches_per_step": host / steps,
+           "kernel_d_records_per_step": n_d / steps,
+           "device_ms_per_step": {k: v / steps / 1e3
+                                  for k, v in split.items()},
+           "top_kernels_ms_per_step": {
+               k: v / steps / 1e3 for k, v in sorted(
+                   top.items(), key=lambda kv: -kv[1])[:8]}}
+    check(busy > 0 and split["kernel D"] > 0,
+          "phase 20: the profile of the captured MoE decode step saw no "
+          "kernel D")
+    return row
+
+
+def moe_eager_split(step):
+    """One eager decode step's device ms by the op that launched each
+    kernel (``torch.profiler``): the routed experts' batched products
+    (``aten::bmm``), the dense products (``aten::mm``/``addmm``:
+    attention's projections, the router, the shared experts, the head),
+    the gather (``aten::index``: the chosen experts' weights, the tokens'
+    embedding rows), the router's softmax and top-k,
+    kernel D (by name: its wrapper is no aten op) and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_op, total, d = {}, 0.0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            by_op[e.name] = by_op.get(e.name, 0.0) + e.self_device_time_total
+        else:
+            total += e.time_range.elapsed_us()
+            d += e.time_range.elapsed_us() * ("flash_decode" in e.name)
+
+    def ops(*names):
+        return sum(by_op.get(k, 0.0) for k in names) / 1e3
+    split = {"routed expert products (bmm)": ops("aten::bmm"),
+             "dense products (mm, addmm)": ops("aten::mm", "aten::addmm"),
+             "gather (expert weights, embedding rows)": ops(
+                 "aten::index", "aten::index_select"),
+             "router softmax / top-k": ops("aten::_softmax", "aten::topk"),
+             "kernel D": d / 1e3}
+    split["the rest"] = total / 1e3 - sum(split.values())
+    return {"device_ms": total / 1e3, "device_ms_by_op": split}
+
+
+def moe_family(dev, smi):
+    """Phase 20: the MoE family, ``qwen2_moe_a2p7b``. Returns the phase's
+    rows, kernel D's G 1 row among them."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.serve import make_decode, prefill_bucket, serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.lm import (_head_weight, grow_cache, init_model,
+                                       model_hidden_train, prefill_step,
+                                       serve_step, train_loss)
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi,
+           "allocated_gb_at_start": torch.cuda.memory_allocated(dev) / 1e9}
+    print(f"phase 20 [{smi}]: {out['allocated_gb_at_start']:.3f} GB "
+          f"allocated at the start", flush=True)
+
+    # (a) launch.serve at full width, phase 9's requests
+    cfg = get_config(MOE_ARCH)
+    args = argparse.Namespace(arch=MOE_ARCH, reduced=False, requests=8,
+                              min_prompt=64, max_prompt=1024, max_new=32,
+                              seed=0, device="cuda")
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize()
+    print(f"phase 20 (a) {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"head_dim {cfg.head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared of d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{cfg.param_count() / 1e9:.3f} B parameters "
+          f"({cfg.active_param_count() / 1e9:.3f} B active) seeded on the "
+          f"card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = serve(args, params=params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    n_buckets = len(report["prefill_buckets"])
+    out["serve"] = {**{k: report[k] for k in (
+        "prefill_buckets", "prefill_s", "decode_s", "decode_tok_per_s",
+        "decode_compiles", "prefill_compiles", "finite",
+        "sample_generation")},
+        "kernel_d_launches": launches,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print(f"phase 20 (a) [{smi}] launch.serve --arch {MOE_ARCH}: "
+          f"{json.dumps(out['serve'])}", flush=True)
+    check(report["finite"], "phase 20 (a): non-finite MoE logits")
+    check(report["decode_compiles"] == n_buckets
+          and report["prefill_compiles"] == 0,
+          f"phase 20 (a): decode graphs {report['decode_compiles']} for "
+          f"{n_buckets} buckets, prefill graphs "
+          f"{report['prefill_compiles']}")
+    check(launches == cfg.num_layers * args.max_new * n_buckets,
+          f"phase 20 (a): kernel D launched {launches} times, not "
+          f"{cfg.num_layers} x {args.max_new} x {n_buckets}")
+
+    # (b) one step through kernel D against the plain attention, and the
+    # step's bound, on a seeded prefill of the largest bucket
+    rng = np.random.default_rng(1)
+    lengths = np.array(report["prompt_lengths"])
+    s_b = max(int(k) for k in report["prefill_buckets"])
+    rows = lengths[[prefill_bucket(int(x)) == s_b for x in lengths]]
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (rows.size, s_b)),
+                             dtype=torch.int32, device=dev)
+    cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    n_steps = args.max_new
+    with torch.no_grad():
+        logits, cache, _ = prefill_step(params, cfg, {"tokens": prompt})
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        grown = grow_cache(cache, s_b + n_steps)
+    out["kernel_vs_plain"] = moe_kernel_vs_plain_step(
+        params, cfg, grown, first, cur,
+        f"phase 20 (b) MoE serve step (bucket {s_b}, {rows.size} rows)")
+    bound = moe_decode_bound(params, cfg, first, grown, cur)
+    out["bound"] = bound
+    print(f"phase 20 (b) [{smi}] decode step bound at the bucket's first "
+          f"step: {json.dumps(bound)}", flush=True)
+    del grown
+
+    # (c) the largest bucket's decode, captured and eager, from one prefill
+    decoded, runs = {}, {}
+    with torch.no_grad():
+        for capture in (True, False):
+            path = "captured" if capture else "eager"
+            decode = make_decode(params, cfg, dev, capture)
+            grown = grow_cache(cache, s_b + n_steps + 8)
+            tok = first
+            lens = cur.clone()
+            toks = torch.empty((rows.size, n_steps), dtype=torch.int32,
+                               device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lens, _ = decode(tok, lens, grown)
+            toks[:, :1] = tok
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(1, n_steps):
+                tok, lens, _ = decode(tok, lens, grown)
+                toks[:, i:i + 1] = tok
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded[capture] = (toks.clone(), grown["layers"]["k"].clone(),
+                                grown["layers"]["v"].clone())
+
+            def more():
+                nonlocal tok, lens
+                tok, lens, _ = decode(tok, lens, grown)
+            ms = 1e3 * (t2 - t1) / (n_steps - 1)
+            runs[path] = {"first_step_ms": 1e3 * (t1 - t0),
+                          "ms_per_step": ms,
+                          "tok_per_s": rows.size * 1e3 / ms,
+                          "bound_share": bound["bound_ms"] / ms}
+            if capture:
+                runs[path]["profile"] = profile_moe_decode(more)
+            else:
+                runs[path]["profile"] = moe_eager_split(more)
+            print(f"phase 20 (c) [{smi}] MoE decode {path}, bucket {s_b}, "
+                  f"{rows.size} rows: {json.dumps(runs[path])}", flush=True)
+            del decode, grown
+    same = [bool(torch.equal(a, b)) for a, b in zip(decoded[True],
+                                                      decoded[False])]
+    out["decode"] = {**runs, "captured_equals_eager": same,
+                     "bucket": s_b, "rows": int(rows.size)}
+    print(f"phase 20 (a) [{smi}] largest bucket ({s_b}, {rows.size} rows): "
+          f"{runs['captured']['ms_per_step']:.3f} ms a decode step "
+          f"captured, {runs['captured']['tok_per_s']:.1f} tokens/s, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+          f"{runs['captured']['bound_share']:.3f} of it); serve "
+          f"{report['decode_tok_per_s']:.1f} tokens/s, prefill "
+          f"{report['prefill_s']:.3f} s, peak {out['serve']['peak_gb']:.2f} "
+          f"GB", flush=True)
+    print(f"phase 20 (c): {n_steps} tokens of {rows.size} rows, captured "
+          f"equal to eager (tokens, k, v): {same}")
+    check(all(same), "phase 20 (c): the captured MoE decode's tokens or "
+                     "cache differ from the eager decode's")
+    del decoded, cache, params, prompt, logits, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the reduced family: the card against the CPU, then launch.train
+    rcfg = get_config(MOE_ARCH).reduced()
+    seeded = init_model(rcfg, "cpu", seed=0)
+    grads, losses = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda x: x.to(device, copy=True), seeded)
+        batch = make_batch(rcfg, 4, 64, seed=0, device=device)
+        loss, g = value_and_grad(lambda q: train_loss(q, rcfg, batch), p)
+        losses[name], grads[name] = float(loss), tree_leaves(g)
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"], strict=True))
+    c8 = dataclasses.replace(rcfg, capacity_factor=8.0)
+    s = 33
+    forward = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda x: x.to(device, copy=True), seeded)
+        tokens = make_batch(c8, 2, s + 1, seed=3, device=device)["tokens"]
+        with torch.no_grad():
+            h, _ = model_hidden_train(p, c8, tokens[:, :s])
+            want = (h[:, -1] @ _head_weight(p)).float()
+            _, cache, lens = prefill_step(p, c8, {"tokens": tokens[:, :s - 1]})
+            cache = grow_cache(cache, s + 8)
+            got, _ = serve_step(p, c8, tokens[:, s - 1:s], cache, lens)
+        forward[name] = (got.cpu(), want.cpu())
+    dec_vs_fwd = float((forward["card"][0] - forward["card"][1]).abs().max())
+    card_vs_cpu = float((forward["card"][0] - forward["cpu"][0]).abs().max())
+    reduced = ["--workload", "lm", "--arch", MOE_ARCH, "--reduced",
+               "--steps", "4"]
+    lr = launcher.parser().parse_args(reduced).lr
+    trained = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        rep, state = launcher.run_lm(
+            launcher.parser().parse_args(reduced + ["--device", device.type]),
+            params=tree_map(lambda x: x.to(device, copy=True), seeded))
+        with torch.no_grad():
+            _, aux = model_hidden_train(state["params"], rcfg,
+                                        state["batch"]["tokens"])
+        trained[name] = {"losses": rep["losses"], "aux": float(aux),
+                         "compiles": state["step"].compiles}
+    got = {}
+    for capture in (True, False):
+        p = tree_map(lambda x: x.to(dev, copy=True), seeded)
+        opt = adamw_init(p)
+        batch = make_batch(rcfg, 4, 128, seed=0, device=dev)
+        step = make_train_step(rcfg, lr=lr, device=dev, capture=capture)
+        ls = torch.stack([step(p, opt, batch)[2].clone() for _ in range(3)])
+        got[capture] = [ls] + tree_leaves((p, opt.mu, opt.nu, opt.step))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got[True], got[False],
+                                                   strict=True))
+    out["reduced"] = {
+        "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+        "loss_rel_diff": loss_rel, "grad_diff_over_max": grad_rel,
+        "decode_vs_forward_max_abs": dec_vs_fwd,
+        "decode_card_vs_cpu_max_abs": card_vs_cpu,
+        "logit_scale": float(forward["cpu"][1].abs().max()),
+        "tol": MOE_TOL, "launch_train": trained,
+        "launch_train_rel_diff": [abs(a - b) / abs(b) for a, b in zip(
+            trained["card"]["losses"], trained["cpu"]["losses"])],
+        "captured_equals_eager_3_steps": bitwise}
+    print(f"phase 20 (d) [{smi}] reduced {MOE_ARCH} (f32, 2 layers, 4 "
+          f"experts top-2, 1 shared): {json.dumps(out['reduced'])}",
+          flush=True)
+    check(loss_rel <= MOE_TOL and grad_rel <= MOE_TOL,
+          f"phase 20 (d): train_loss or its gradient differ between the "
+          f"card and the CPU ({loss_rel}, {grad_rel})")
+    scale = out["reduced"]["logit_scale"]
+    check(dec_vs_fwd <= MOE_TOL * (1 + scale)
+          and card_vs_cpu <= MOE_TOL * (1 + scale),
+          f"phase 20 (d): prefill then decode differs from the train "
+          f"forward or from the CPU ({dec_vs_fwd}, {card_vs_cpu})")
+    card = trained["card"]
+    check(all(np.isfinite(card["losses"])) and card["aux"] > 0
+          and card["compiles"] == 1,
+          f"phase 20 (d): launch.train on the card: {card}")
+    check(bitwise, "phase 20 (d): 3 captured MoE train steps differ from "
+                   "3 eager ones")
+    del got, seeded, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) kernel D at the MoE serving shape: G = H / Hkv = 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, s_cache = int(rows.size), s_b + n_steps
+    q = torch.randn((b, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s_cache, cfg.num_kv_heads, cfg.head_dim),
+                        generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    out["kernel_d"] = kernel_d_case(
+        q, k, v, torch.as_tensor(rows + 1, dtype=torch.int32, device=dev),
+        b, f"phase 20 (e) MoE serving bucket, G 1 (B {b}, S {s_cache}, "
+           f"H {cfg.num_heads}, Hkv {cfg.num_kv_heads})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3391,6 +3894,14 @@ def main():
             k["launches_phase19_gnn"] = training["gnn"]["launches"][
                 "fused_gcn_layer_need_agg" if k["name"].startswith("fused")
                 else "csr_aggregate"]
+
+    # -- 20. the MoE family -------------------------------------------------
+    torch.cuda.empty_cache()
+    moe = moe_family(dev, smi)
+    for k in kernels:
+        if k["name"] == "flash_decode":
+            k["shapes"]["moe_serving_g1"] = moe["kernel_d"]
+            k["launches_phase20_moe"] = moe["serve"]["kernel_d_launches"]
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
@@ -3416,7 +3927,8 @@ def main():
         "phase18": compiled,
         "phase19": {k: v for k, v in training.items() if k != "full"},
         "phase19_full": {k: v for k, v in training["full"].items()
-                         if k != "losses"}}))
+                         if k != "losses"},
+        "phase20": {k: v for k, v in moe.items() if k != "kernel_d"}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

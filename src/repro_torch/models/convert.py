@@ -4,7 +4,9 @@ The tests run both packages on the same weights: the reference's
 ``init_model`` tree, taken to numpy leaf by leaf, goes through
 :func:`params_from_reference`. Its homogeneous stack is scan-stacked
 (``layers`` leaves carry a leading L axis); the port keeps one dict per
-layer, each leaf a view of one stacked tensor. :func:`params_to_reference`
+layer, each leaf a view of one stacked tensor. An MoE layer's ``shared``
+experts are a list in both layouts (in the reference's, a list of dicts
+whose leaves are stacked over the layers). :func:`params_to_reference`
 goes back: the port's params as the reference's numpy tree, which the
 tests compare with the reference's and the LM checkpoint stores.
 """
@@ -37,9 +39,15 @@ def _tree(x: Any, device: torch.device) -> Any:
     return tensor_from_numpy(x, device)
 
 
-def _unstack(tree: Dict, i: int) -> Dict:
-    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree. A list stays a list (an MoE layer's
+    ``shared`` experts, each of whose leaves is stacked): it is never
+    indexed by the layer."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unstack(v, i) for v in tree]
+    return tree[i]
 
 
 def params_from_reference(tree: Dict, cfg: ModelConfig,
@@ -72,14 +80,20 @@ def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
 def _numpy_tree(x: Any) -> Any:
     if isinstance(x, dict):
         return {k: _numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_numpy_tree(v) for v in x]
     return numpy_from_tensor(x)
 
 
-def _stack(layers: List[Dict]) -> Dict:
-    return {k: _stack([lp[k] for lp in layers])
-            if isinstance(layers[0][k], dict)
-            else np.stack([lp[k] for lp in layers])
-            for k in layers[0]}
+def _stack(layers: List[Any]) -> Any:
+    """The inverse of :func:`_unstack`: per-layer trees of one structure
+    as one tree whose leaves are stacked ``[L, ...]``; lists stay lists."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in first}
+    if isinstance(first, list):
+        return [_stack([lp[j] for lp in layers]) for j in range(len(first))]
+    return np.stack(layers)
 
 
 def params_to_reference(params: Dict, cfg: ModelConfig) -> Dict:

@@ -8,7 +8,7 @@ packages the same weights through :mod:`repro_torch.models.convert`).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -95,9 +95,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
-def init_ffn(cfg: ModelConfig, device: torch.device,
-             gen: torch.Generator) -> Dict[str, torch.Tensor]:
-    d, f = cfg.d_model, cfg.d_ff
+def init_ffn(cfg: ModelConfig, device: torch.device, gen: torch.Generator,
+             d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A dense FFN of width ``d_ff`` (default ``cfg.d_ff``; a shared
+    expert passes ``cfg.moe_d_ff``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = torch_dtype(cfg)
     s_in, s_out = (2.0 / d) ** 0.5, (2.0 / f) ** 0.5
     p = {}

@@ -1,5 +1,5 @@
-"""Decoder-only dense language model: init, the train forward and its
-chunked loss, prefill, KV cache, decode.
+"""Decoder-only language model (dense and MoE): init, the train forward
+and its chunked loss, prefill, KV cache, decode.
 
 Structure (the reference's names, one entry per layer instead of its
 scan-stacked leaves)::
@@ -9,6 +9,9 @@ scan-stacked leaves)::
       "layers":     [{"ln1", "attn", "ln2", "ffn"}, ...]   one dict a layer
       "final_norm", "head" ([d, V], absent when tied)
     }
+    ffn = {"w_gate", "w_up", "w_out"}                      a dense layer's
+    ffn = {"router", "w_gate", "w_up", "w_out", "shared": [ffn, ...]}
+                                                           an MoE layer's
     cache = {"first_dense": [], "layers": {"k": [L, B, S, Hkv, Dh],
                                            "v": [L, B, S, Hkv, Dh]}}
 
@@ -23,8 +26,12 @@ logits are computed, reduced and dropped, and recomputed in the backward,
 so no more than one chunk's logits ever exists.
 
 This slice ports the homogeneous attention stack (dense and GQA families:
-qwen3, qwen1.5, glm4, nemotron). Experts, MLA, block patterns (SSM,
-hybrid), encoders and modality frontends raise ``NotImplementedError``.
+qwen3, qwen1.5, glm4, nemotron) and its mixture-of-experts variant, every
+layer's FFN a :mod:`repro_torch.models.moe` layer (qwen2-moe): its router's
+aux loss adds into the training loss, prefill drops it, decode runs
+:func:`moe_decode`. MLA, leading dense layers before the experts
+(deepseek's ``first_k_dense``), block patterns (SSM, hybrid), encoders and
+modality frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from .attention import attention_decode, attention_train, init_attention
 from .config import ModelConfig
 from .layers import (apply_norm, ffn_forward, init_ffn, init_norm, normal,
                      torch_dtype)
+from .moe import init_moe, moe_decode, moe_forward
 
 Params = Dict
 Cache = Dict
@@ -54,27 +62,29 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this slice does not run."""
     missing = [what for what, on in (
-        ("mixture-of-experts layers", cfg.num_experts > 0),
         ("MLA attention", cfg.mla),
+        ("leading dense layers before the experts",
+         cfg.num_experts > 0 and cfg.first_k_dense > 0),
         ("SSM/hybrid block patterns", bool(cfg.block_pattern)),
         ("an encoder", cfg.encoder_layers > 0),
         (f"the {cfg.frontend} frontend", cfg.frontend != "none")) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are not ported yet; the "
-            f"port's LM runs dense attention stacks only (MoE, MLA, SSM and "
-            f"enc-dec families are a later slice of the port)")
+            f"port's LM runs dense and MoE attention stacks only (MLA, SSM "
+            f"and enc-dec families are a later slice of the port)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, device: torch.device,
-                gen: torch.Generator) -> Dict:
+                gen: torch.Generator, moe: bool) -> Dict:
     return {"ln1": init_norm(cfg, device),
             "attn": init_attention(cfg, device, gen),
             "ln2": init_norm(cfg, device),
-            "ffn": init_ffn(cfg, device, gen)}
+            "ffn": (init_moe(cfg, device, gen) if moe
+                    else init_ffn(cfg, device, gen))}
 
 
 def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
@@ -89,8 +99,8 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
         "embed": normal((cfg.vocab_size, cfg.d_model), 0.02, dt, device,
                         gen),
         "final_norm": init_norm(cfg, device),
-        "layers": [_init_layer(cfg, device, gen)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_init_layer(cfg, device, gen, cfg.is_moe_layer(i))
+                   for i in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
         params["head"] = normal((cfg.d_model, cfg.vocab_size),
@@ -129,16 +139,20 @@ def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
                        memory: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over the whole sequence; returns ``(x, aux_loss)``. The
-    ported kind is a dense attention layer, whose aux loss is 0."""
-    if kind != "attn" or moe or memory is not None:
+    ported kind is an attention layer, dense (aux loss 0) or MoE (its
+    router's aux loss)."""
+    if kind != "attn" or memory is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention layers train in the port "
-            f"(got kind={kind!r}, moe={moe}, memory={memory is not None})")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            f"{cfg.name}: only attention layers train in the port "
+            f"(got kind={kind!r}, memory={memory is not None})")
     x = x + attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
                             positions)
-    x = x + ffn_forward(p["ffn"], cfg, apply_norm(p["ln2"], x))
-    return x, aux
+    h = apply_norm(p["ln2"], x)
+    if moe:
+        out, aux = moe_forward(p["ffn"], cfg, h)
+        return x + out, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn_forward(p["ffn"], cfg, h), aux
 
 
 def model_hidden_train(params: Params, cfg: ModelConfig,
@@ -151,9 +165,9 @@ def model_hidden_train(params: Params, cfg: ModelConfig,
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
         f = _remat(functools.partial(_apply_layer_train, lp, cfg, "attn",
-                                     False), cfg)
+                                     cfg.is_moe_layer(i)), cfg)
         x, a = f(x, positions)
         aux_total = aux_total + a
     return apply_norm(params["final_norm"], x), aux_total
@@ -217,15 +231,18 @@ def train_loss(params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def _apply_layer_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                         positions: torch.Tensor
+def _apply_layer_prefill(p: Dict, cfg: ModelConfig, moe: bool,
+                         x: torch.Tensor, positions: torch.Tensor
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One attention layer over the whole prompt; returns ``(x, {"k", "v"})``
-    with this layer's cache entry ``[B, S, Hkv, Dh]``."""
+    with this layer's cache entry ``[B, S, Hkv, Dh]``. An MoE layer's aux
+    loss is dropped, as in the reference."""
     out, k, v = attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
                                 positions, return_kv=True)
     x = x + out
-    x = x + ffn_forward(p["ffn"], cfg, apply_norm(p["ln2"], x))
+    h = apply_norm(p["ln2"], x)
+    x = x + (moe_forward(p["ffn"], cfg, h)[0] if moe
+             else ffn_forward(p["ffn"], cfg, h))
     return x, {"k": k, "v": v}
 
 
@@ -242,8 +259,9 @@ def prefill_step(params: Params, cfg: ModelConfig,
     positions = torch.arange(s, device=tokens.device)[None, :]
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for lp in params["layers"]:
-        x, c = _apply_layer_prefill(lp, cfg, x, positions)
+    for i, lp in enumerate(params["layers"]):
+        x, c = _apply_layer_prefill(lp, cfg, cfg.is_moe_layer(i), x,
+                                    positions)
         ks.append(c["k"])
         vs.append(c["v"])
     h = apply_norm(params["final_norm"], x)
@@ -295,7 +313,10 @@ def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
     out, _, _ = attention_decode(lp["attn"], cfg, apply_norm(lp["ln1"], x),
                                  cache_k, cache_v, length)
     x = x + out
-    return x + ffn_forward(lp["ffn"], cfg, apply_norm(lp["ln2"], x))
+    h = apply_norm(lp["ln2"], x)
+    if "router" in lp["ffn"]:
+        return x + moe_decode(lp["ffn"], cfg, h)
+    return x + ffn_forward(lp["ffn"], cfg, h)
 
 
 def serve_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

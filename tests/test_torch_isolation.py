@@ -78,6 +78,8 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.launch.serve"} <= set(got["mods"])
     assert {"repro_torch.launch.train", "repro_torch.launch.steps",
             "repro_torch.optim.schedules"} <= set(got["mods"])
+    assert {"repro_torch.models.moe",
+            "repro_torch.configs.qwen2_moe_a2p7b"} <= set(got["mods"])
     assert {"repro_torch.core.registry", "repro_torch.core.partitioners",
             "repro_torch.core.spec", "repro_torch.core.metrics",
             "repro_torch.pipeline.artifacts",
@@ -201,7 +203,9 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import lm
     cfg = get_config("qwen3_4b").reduced()
+    moe_cfg = get_config("qwen2_moe_a2p7b").reduced()
     for call in (lambda: lm.init_model(cfg), lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: lm.init_model(moe_cfg),
                  lambda: serve.main(["--reduced", "--requests", "1"]),
                  lambda: steps.make_train_step(cfg),
                  lambda: train.main(["--workload", "lm", "--reduced",

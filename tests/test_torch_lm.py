@@ -177,9 +177,13 @@ def test_norm_and_ffn_variants_match_reference(ref, arch):
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek_v2_236b", "qwen2_moe_a2p7b", "xlstm_125m",
-                 "zamba2_1p2b", "seamless_m4t_large_v2", "phi3_vision_4p2b"):
-        cfg = port_configs.get_config(arch).reduced()
+    # MoE layers run; leading dense layers before them (deepseek's
+    # first_k_dense) do not, with or without MLA
+    leading_dense = dataclasses.replace(
+        port_configs.get_config("qwen2_moe_a2p7b").reduced(), first_k_dense=1)
+    for cfg in [port_configs.get_config(arch).reduced() for arch in (
+            "deepseek_v2_236b", "xlstm_125m", "zamba2_1p2b",
+            "seamless_m4t_large_v2", "phi3_vision_4p2b")] + [leading_dense]:
         with pytest.raises(NotImplementedError, match="later slice"):
             lm.init_model(cfg, "cpu")
         with pytest.raises(NotImplementedError, match="later slice"):

@@ -424,9 +424,13 @@ def test_bf16_lm_checkpoint_restores_in_both_packages(ref, tmp_path):
 
 
 def test_unported_families_raise_in_training():
-    for arch in ("qwen2_moe_a2p7b", "deepseek_v2_236b", "xlstm_125m",
-                 "seamless_m4t_large_v2"):
-        cfg = get_config(arch).reduced()
+    # MoE layers train; leading dense layers before them (deepseek's
+    # first_k_dense) do not, with or without MLA
+    leading_dense = dataclasses.replace(
+        get_config("qwen2_moe_a2p7b").reduced(), first_k_dense=1)
+    for cfg in [get_config(arch).reduced() for arch in (
+            "deepseek_v2_236b", "xlstm_125m",
+            "seamless_m4t_large_v2")] + [leading_dense]:
         with pytest.raises(NotImplementedError, match="later slice"):
             lm.model_hidden_train({}, cfg,
                                   torch.zeros((1, 4), dtype=torch.int32))
