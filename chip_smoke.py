@@ -5,8 +5,9 @@ training modes, the traced, checkpointed and profiled main path, the
 serving commands (``replay``, ``serve``, ``client``), the kernel
 autotuner, the compiled steps (CUDA graphs) and
 ``repro_torch.launch.train`` (the GNN workload and LM training, qwen3_4b
-at full width) and the MoE family (qwen2_moe_a2p7b served at full width,
-trained reduced) on one NVIDIA GPU.
+at full width), the MoE family (qwen2_moe_a2p7b served at full width,
+trained reduced) and the SSM and hybrid families (xlstm_125m and
+zamba2_1p2b served and trained at full width) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -251,6 +252,39 @@ Phases, each fatal on failure:
    3 captured train steps bitwise equal to 3 eager ones; (e) kernel D at
    the MoE serving shape, G = H / Hkv = 1 (H 16, D 128, bf16), against
    its plain version, timed beside its bound and
+   ``scaled_dot_product_attention``;
+21. the SSM and hybrid families, ``xlstm_125m`` (12 layers alternating
+   mLSTM and sLSTM, d_model 768, 4 heads, tied embeddings) and
+   ``zamba2_1p2b`` (32 Mamba2 layers and one shared attention+FFN block
+   applied at 6 of 38 layers, d_model 2048, H = Hkv 32, head_dim 64),
+   both at full width and depth, bf16, seeded (every earlier model
+   released first; the allocated GB printed at the start): (a)
+   ``launch.serve.serve`` on phase 9's requests: logits finite, one
+   decode graph a bucket, kernel D 6 x 32 x (buckets) launches for
+   zamba2 and none for xlstm; prefill s, peak GB, and the largest
+   bucket's ms a decode step and tokens/s beside the step's bound
+   (``ssm_decode_bound``: each layer application's weights, the shared
+   block once per application, the head, the K/V cache and each state
+   read and written, over 3.35 TB/s); (b) zamba2's step through kernel D
+   against the plain attention, each from a fresh copy of the prefill's
+   cache, at phase 9's bf16 tolerance; (c) 32 decode steps of that bucket
+   captured and eager from one prefill, tokens, every step's logits and
+   every cache leaf (K/V and each recurrent state) bitwise equal, and a
+   4-step profile of the captured step by kernel (kernel D, cuBLAS,
+   copies, reductions, elementwise, the rest; idle share, kernels a
+   step); (d) the reduced families (f32; zamba2 at 6 layers, so that one
+   ``shared_attn`` is present), the card against the CPU from the same
+   weights: ``train_loss`` and its gradient at batch 4 x 160, prefill
+   then decode against the train forward, at 1e-4; (e) ``launch.train
+   --workload lm`` at full width, batch 4 x 256 (two 128-token chunks),
+   3 captured steps (finite, one graph, peak under 80 GB), the same 3
+   steps eager bitwise equal, the step's ms, tokens/s and bound
+   (``ssm_train_bound``), and the last eager step's device split
+   (cuBLAS, the chunked scan, the sLSTM loop, AdamW, the rest; backward
+   kernels given to the forward op's part by autograd sequence number,
+   ``ssm_step_split``); (f) kernel D
+   at zamba2's serving shape, D 64, G 1 (H = Hkv 32, bf16), against its
+   plain version, timed beside its bound and
    ``scaled_dot_product_attention``.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
@@ -311,6 +345,16 @@ GEMM_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "sm90")
 MOE_ARCH = "qwen2_moe_a2p7b"
 MOE_TOL = 1e-4         # the reduced MoE, card against CPU, f32 (abs + rel
                        # for logits; of each leaf's largest for gradients)
+SSM_ARCHS = ("xlstm_125m", "zamba2_1p2b")
+SSM_TOL = 1e-4         # the reduced SSM/hybrid, card against CPU, f32 (as
+                       # MOE_TOL)
+# device kernels of an SSM/hybrid decode step by name, first match wins
+SSM_KERNELS = (("kernel D", ("flash_decode",)),
+               ("cuBLAS products", GEMM_NAMES + ("gemv", "splitk")),
+               ("copies (state writes, concatenation)", ("copy", "cat")),
+               ("reductions (norms, sums)", ("reduce",)),
+               ("elementwise (gates, state updates, casts)",
+                ("elementwise",)))
 # device kernels of an MoE decode step by name, first match wins
 MOE_KERNELS = (("kernel D", ("flash_decode",)),
                ("router softmax / top-k", ("softmax", "topk", "radix",
@@ -974,21 +1018,25 @@ def logits_diff(got, ref):
             float(d.pow(2).mean().sqrt() / r.pow(2).mean().sqrt()))
 
 
-def kernel_vs_plain_step(params, cfg, cache, tokens, lengths, what):
+def kernel_vs_plain_step(params, cfg, cache, tokens, lengths, what,
+                         fresh=None):
     """One decode step from the same cache through the plain version,
     through the plain version in the reference kernel's order (the floor:
     what bf16 roundings alone move), and through kernel D. Each layer
     writes its new row before it attends, so each step overwrites what the
-    one before wrote: all three see one cache."""
+    one before wrote: all three see one cache. A cache with recurrent
+    states (which a step advances) is made anew for each step by
+    ``fresh()``."""
     import torch
     from repro_torch.kernels import flash_decode as kernel_d
     from repro_torch.models.lm import serve_step
+    new = fresh or (lambda: cache)
     with torch.no_grad():
         with decode_attention(kernel_d.plain):
-            ref, _ = serve_step(params, cfg, tokens, cache, lengths)
+            ref, _ = serve_step(params, cfg, tokens, new(), lengths)
         with decode_attention(plain_q_scaled):
-            floor, _ = serve_step(params, cfg, tokens, cache, lengths)
-        got, _ = serve_step(params, cfg, tokens, cache, lengths)
+            floor, _ = serve_step(params, cfg, tokens, new(), lengths)
+        got, _ = serve_step(params, cfg, tokens, new(), lengths)
     check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all()),
           f"non-finite {what} logits")
     err, floor_err = logits_diff(got, ref), logits_diff(floor, ref)
@@ -3136,10 +3184,12 @@ def moe_decode_bound(params, cfg, tokens, cache, lengths):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def profile_moe_decode(step, steps=4):
-    """Device ms per decode step by kernel name (``MOE_KERNELS``, the rest
-    apart) over ``steps`` calls of ``step`` (``torch.profiler``), the idle
-    share, kernels and host launches a step."""
+def profile_by_kernel(step, table, rest, steps=4):
+    """Device ms per call of ``step`` by kernel name (``table``: (label,
+    words) pairs, first match wins; ``rest`` labels the others) over
+    ``steps`` calls (``torch.profiler``), the idle share, kernels and host
+    launches a call, kernel D's records a call and the 8 kernels that
+    took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()                                  # warm
@@ -3151,8 +3201,8 @@ def profile_moe_decode(step, steps=4):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    split = {name: 0.0 for name, _ in MOE_KERNELS}
-    split["the rest (elementwise, norms, RoPE, copies)"] = 0.0
+    split = {name: 0.0 for name, _ in table}
+    split[rest] = 0.0
     n = host = n_d = 0
     top = {}
     for e in prof.events():
@@ -3162,24 +3212,31 @@ def profile_moe_decode(step, steps=4):
         n += 1
         name = e.name.lower()
         us = e.time_range.elapsed_us()
-        key = next((k for k, words in MOE_KERNELS
-                    if any(w in name for w in words)),
-                   "the rest (elementwise, norms, RoPE, copies)")
+        key = next((k for k, words in table
+                    if any(w in name for w in words)), rest)
         split[key] += us
-        n_d += key == "kernel D"
+        n_d += "flash_decode" in name
         top[e.name[:80]] = top.get(e.name[:80], 0.0) + us
     busy = sum(split.values())
-    row = {"wall_ms_per_step": wall_us / steps / 1e3,
-           "device_busy_ms_per_step": busy / steps / 1e3,
-           "idle_share": 1 - busy / wall_us, "kernels_per_step": n / steps,
-           "host_launches_per_step": host / steps,
-           "kernel_d_records_per_step": n_d / steps,
-           "device_ms_per_step": {k: v / steps / 1e3
-                                  for k, v in split.items()},
-           "top_kernels_ms_per_step": {
-               k: v / steps / 1e3 for k, v in sorted(
-                   top.items(), key=lambda kv: -kv[1])[:8]}}
-    check(busy > 0 and split["kernel D"] > 0,
+    return {"wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "idle_share": 1 - busy / wall_us, "kernels_per_step": n / steps,
+            "host_launches_per_step": host / steps,
+            "kernel_d_records_per_step": n_d / steps,
+            "device_ms_per_step": {k: v / steps / 1e3
+                                   for k, v in split.items()},
+            "top_kernels_ms_per_step": {
+                k: v / steps / 1e3 for k, v in sorted(
+                    top.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def profile_moe_decode(step, steps=4):
+    """``profile_by_kernel`` of an MoE decode step (``MOE_KERNELS``)."""
+    row = profile_by_kernel(step, MOE_KERNELS,
+                            "the rest (elementwise, norms, RoPE, copies)",
+                            steps)
+    check(row["device_busy_ms_per_step"] > 0
+          and row["device_ms_per_step"]["kernel D"] > 0,
           "phase 20: the profile of the captured MoE decode step saw no "
           "kernel D")
     return row
@@ -3469,6 +3526,544 @@ def moe_family(dev, smi):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 20: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
+def ssm_decode_bound(params, cfg, tokens, cache, lengths):
+    """The least time one decode step of a block-pattern model could take
+    on the card: the bytes it must read (every layer application's
+    weights, so the shared block once per application; the head, or the
+    tied embedding; the tokens' embedding rows; the K/V cache up to each
+    row's length with the new row; each recurrent state) and write (each
+    state, the K/V rows, the logits), over 3.35 TB/s, or its operations
+    (2 a weight element a row, attention's two products over the filled
+    rows, 4 an f32 state element) at the bf16 dense rate, the larger.
+    Returns the terms."""
+    from repro_torch.models.lm import _head_weight
+    from repro_torch.tree import tree_leaves
+
+    def size(t):
+        return t.numel() * t.element_size()
+    rows = tokens.shape[0]
+    weights = elems = 0
+    n_attn = state = state_elems = 0
+    filled = int((lengths + 1).sum())
+    kv = 0
+    for i, kind in enumerate(cfg.blocks):
+        lp = params["shared_attn"] if kind == "shared_attn" \
+            else params["layers"][i]
+        leaves = tree_leaves(lp)
+        weights += sum(size(t) for t in leaves)
+        elems += sum(t.numel() for t in leaves)
+        c = cache["layers"][i]
+        if "k" in c:
+            n_attn += 1
+            kv += 2 * filled * c["k"].shape[2] * c["k"].shape[3] \
+                * c["k"].element_size()
+        else:
+            state += 2 * sum(size(t) for t in c.values())
+            state_elems += sum(t.numel() for t in c.values())
+    head_w = _head_weight(params)
+    head = size(head_w) + rows * cfg.d_model * params["embed"].element_size()
+    logits = rows * cfg.vocab_size * 4
+    nbytes = weights + kv + state + head + logits
+    ops = 2 * rows * (elems + head_w.numel()) \
+        + 4 * filled * cfg.num_heads * cfg.head_dim * n_attn \
+        + 4 * state_elems
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return {"bytes_gb": nbytes / 1e9, "weights_gb": weights / 1e9,
+            "kv_gb": kv / 1e9, "state_read_written_gb": state / 1e9,
+            "head_gb": head / 1e9, "attention_applications": n_attn,
+            "gflop": ops / 1e9, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssm_serving(dev, smi, arch, steps=32):
+    """Phase 21 (a)-(c) for one arch: ``launch.serve`` at full width, then
+    at the largest bucket kernel D against the plain attention (where the
+    arch attends), the step's bound, and 32 steps captured against 32
+    eager. Returns the rows and the bucket (for (f))."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode, prefill_bucket, serve
+    from repro_torch.models.lm import grow_cache, init_model, prefill_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    args = argparse.Namespace(arch=arch, reduced=False, requests=8,
+                              min_prompt=64, max_prompt=1024, max_new=steps,
+                              seed=0, device="cuda")
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize()
+    kinds = {k: cfg.blocks.count(k) for k in dict.fromkeys(cfg.blocks)}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"phase 21 (a) {cfg.name}: {cfg.num_layers} layers {kinds}, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, ssm_state "
+          f"{cfg.ssm_state_dim}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, {cfg.dtype}; {n_params / 1e9:.4f} B "
+          f"distinct parameters seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = serve(args, params=params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    n_buckets = len(report["prefill_buckets"])
+    n_attn = sum(k in ("attn", "shared_attn") for k in cfg.blocks)
+    out = {"params_b": n_params / 1e9, "kinds": kinds, "serve": {
+        **{k: report[k] for k in (
+            "prefill_buckets", "prefill_s", "decode_s", "decode_tok_per_s",
+            "decode_compiles", "prefill_compiles", "finite",
+            "sample_generation")},
+        "kernel_d_launches": launches,
+        "kernel_d_launches_per_step": n_attn,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
+    print(f"phase 21 (a) [{smi}] launch.serve --arch {arch}: "
+          f"{json.dumps(out['serve'])}", flush=True)
+    check(report["finite"], f"phase 21 (a): non-finite {arch} logits")
+    check(report["decode_compiles"] == n_buckets
+          and report["prefill_compiles"] == 0,
+          f"phase 21 (a): {arch}: decode graphs {report['decode_compiles']} "
+          f"for {n_buckets} buckets, prefill graphs "
+          f"{report['prefill_compiles']}")
+    check(launches == n_attn * steps * n_buckets,
+          f"phase 21 (a): {arch}: kernel D launched {launches} times, not "
+          f"{n_attn} x {steps} x {n_buckets}")
+
+    # the largest bucket: a seeded prefill, its rows at their own lengths
+    rng = np.random.default_rng(1)
+    lengths = np.array(report["prompt_lengths"])
+    s_b = max(int(k) for k in report["prefill_buckets"])
+    rows = lengths[[prefill_bucket(int(x)) == s_b for x in lengths]]
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (rows.size, s_b)),
+                             dtype=torch.int32, device=dev)
+    cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, cache, _ = prefill_step(params, cfg, {"tokens": prompt})
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    target = s_b + steps
+    if n_attn:
+        # (b) kernel D against the plain attention, each from a fresh copy
+        # of the prefill's cache (a step advances the Mamba2 states)
+        _, out["kernel_vs_plain"] = kernel_vs_plain_step(
+            params, cfg, None, first, cur,
+            f"phase 21 (b) [{smi}] {arch} serve step (bucket {s_b}, "
+            f"{rows.size} rows)", fresh=lambda: grow_cache(cache, target))
+    bound = ssm_decode_bound(params, cfg, first, grow_cache(cache, target),
+                             cur)
+    out["bound"] = bound
+    print(f"phase 21 (a) [{smi}] {arch} decode step bound at the bucket's "
+          f"first step: {json.dumps(bound)}", flush=True)
+
+    # (c) the bucket's decode captured and eager, from one prefill
+    decoded, runs = {}, {}
+    with torch.no_grad():
+        for capture in (True, False):
+            path = "captured" if capture else "eager"
+            decode = make_decode(params, cfg, dev, capture)
+            grown = grow_cache(cache, target + 8)
+            tok, lens = first, cur.clone()
+            toks = torch.empty((rows.size, steps), dtype=torch.int32,
+                               device=dev)
+            every = torch.empty((steps, rows.size, cfg.vocab_size),
+                                device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                tok, lens, lg = decode(tok, lens, grown)
+                toks[:, i:i + 1] = tok
+                every[i] = lg
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded[capture] = [toks.clone(), every] + [
+                t.clone() for t in tree_leaves(grown)]
+
+            def more():
+                nonlocal tok, lens
+                tok, lens, _ = decode(tok, lens, grown)
+            ms = 1e3 * (t2 - t1) / (steps - 1)
+            runs[path] = {"first_step_ms": 1e3 * (t1 - t0),
+                          "ms_per_step": ms,
+                          "tok_per_s": rows.size * 1e3 / ms,
+                          "bound_share": bound["bound_ms"] / ms}
+            if capture:
+                runs[path]["profile"] = profile_by_kernel(
+                    more, SSM_KERNELS, "the rest")
+            print(f"phase 21 (c) [{smi}] {arch} decode {path}, bucket "
+                  f"{s_b}, {rows.size} rows: {json.dumps(runs[path])}",
+                  flush=True)
+            del decode, grown
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        decoded[True], decoded[False], strict=True)]
+    out["decode"] = {**runs, "bucket": s_b, "rows": int(rows.size),
+                     "leaves_compared": len(same),
+                     "captured_equals_eager": all(same)}
+    prof = runs["captured"]["profile"]
+    print(f"phase 21 (a) [{smi}] {arch} largest bucket ({s_b}, {rows.size} "
+          f"rows): {runs['captured']['ms_per_step']:.3f} ms a decode step "
+          f"captured, {runs['captured']['tok_per_s']:.1f} tokens/s, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+          f"{runs['captured']['bound_share']:.3f} of it); serve "
+          f"{report['decode_tok_per_s']:.1f} tokens/s, prefill "
+          f"{report['prefill_s']:.3f} s, peak {out['serve']['peak_gb']:.2f} "
+          f"GB, kernel D {launches} launches", flush=True)
+    print(f"phase 21 (c): {steps} tokens of {rows.size} rows, captured "
+          f"equal to eager bit for bit in tokens, logits and "
+          f"{len(same) - 2} cache leaves: {same}", flush=True)
+    check(all(same), f"phase 21 (c): {arch}: the captured decode's tokens, "
+                     f"logits or cache differ from the eager decode's")
+    check(prof["device_busy_ms_per_step"] > 0
+          and (prof["device_ms_per_step"]["kernel D"] > 0) == (n_attn > 0),
+          f"phase 21 (c): {arch}: the profile of the captured decode step "
+          f"saw no kernel, or kernel D where it should not (or not where it "
+          f"should): {prof['device_ms_per_step']}")
+    del decoded, cache, params, prompt, logits, first
+    return out, (s_b + steps, rows)
+
+
+def ssm_reduced_card_vs_cpu(dev, smi):
+    """Phase 21 (d): the reduced families (f32; xlstm's 2 layers, zamba2
+    at 6 layers, so that one ``shared_attn`` is present), the card
+    against the CPU from the same weights: ``train_loss`` and its
+    gradient at batch 4 x 160 (a 128-token chunk and a padded one), and
+    prefill of 149 tokens then one decode step against the train forward
+    at position 149."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.lm import (_head_weight, grow_cache, init_model,
+                                       model_hidden_train, prefill_step,
+                                       serve_step, train_loss)
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    out = {}
+    for arch in SSM_ARCHS:
+        rcfg = get_config(arch).reduced()
+        if "shared_attn" in get_config(arch).blocks:
+            rcfg = dataclasses.replace(rcfg, num_layers=6)
+        seeded = init_model(rcfg, "cpu", seed=0)
+        grads, losses, forward = {}, {}, {}
+        s = 150
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda x: x.to(device, copy=True), seeded)
+            batch = make_batch(rcfg, 4, 160, seed=0, device=device)
+            loss, g = value_and_grad(lambda q: train_loss(q, rcfg, batch), p)
+            losses[name], grads[name] = float(loss), tree_leaves(g)
+            tokens = make_batch(rcfg, 2, s, seed=3, device=device)["tokens"]
+            with torch.no_grad():
+                h, _ = model_hidden_train(p, rcfg, tokens)
+                want = (h[:, -1] @ _head_weight(p)).float()
+                _, cache, lens = prefill_step(p, rcfg,
+                                              {"tokens": tokens[:, :s - 1]})
+                cache = grow_cache(cache, s + 8)
+                got, _ = serve_step(p, rcfg, tokens[:, s - 1:s], cache, lens)
+            forward[name] = (got.cpu(), want.cpu())
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                       for a, b in zip(grads["card"], grads["cpu"],
+                                       strict=True))
+        row = {"blocks": list(rcfg.blocks),
+               "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+               "loss_rel_diff": loss_rel, "grad_diff_over_max": grad_rel,
+               "decode_vs_forward_max_abs": float(
+                   (forward["card"][0] - forward["card"][1]).abs().max()),
+               "decode_card_vs_cpu_max_abs": float(
+                   (forward["card"][0] - forward["cpu"][0]).abs().max()),
+               "logit_scale": float(forward["cpu"][1].abs().max()),
+               "tol": SSM_TOL}
+        out[arch] = row
+        print(f"phase 21 (d) [{smi}] reduced {arch} (f32, {rcfg.num_layers} "
+              f"layers), the card against the CPU: {json.dumps(row)}",
+              flush=True)
+        scale = row["logit_scale"]
+        check(loss_rel <= SSM_TOL and grad_rel <= SSM_TOL,
+              f"phase 21 (d): {arch}: train_loss or its gradient differ "
+              f"between the card and the CPU ({loss_rel}, {grad_rel})")
+        check(row["decode_vs_forward_max_abs"] <= SSM_TOL * (1 + scale)
+              and row["decode_card_vs_cpu_max_abs"] <= SSM_TOL * (1 + scale),
+              f"phase 21 (d): {arch}: prefill then decode differs from the "
+              f"train forward or from the CPU: {row}")
+        del seeded, grads, forward
+    return out
+
+
+def ssm_train_bound(cfg, params, batch, seq):
+    """The least time one train step could take on the card: its products
+    at the dense bf16 rate (every layer application's weights and the head
+    at 2 flops a weight element a token a pass, over the forward, remat's
+    second forward and the backward's two; the shared attention's QK^T
+    and PV over S x S; the chunked scan's intra-chunk and state products)
+    plus AdamW's bytes at the memory rate (as ``lm_train_bound``)."""
+    from repro_torch.models.lm import _head_weight
+    from repro_torch.models.ssm import MAMBA_HEAD_DIM
+    from repro_torch.tree import tree_leaves
+    tokens = batch * seq
+    passes = 4 if cfg.remat else 3
+    layer_elems = scan = attn = 0
+    c = min(cfg.chunk_size, seq)
+    nc = -(-seq // c)
+    for i, kind in enumerate(cfg.blocks):
+        lp = params["shared_attn"] if kind == "shared_attn" \
+            else params["layers"][i]
+        layer_elems += sum(t.numel() for t in tree_leaves(lp))
+        if kind in ("attn", "shared_attn"):
+            attn += 4 * batch * seq * seq * cfg.num_heads * cfg.head_dim
+        elif kind in ("mamba", "mlstm"):
+            if kind == "mamba":
+                h, dk, dv = (2 * cfg.d_model // MAMBA_HEAD_DIM,
+                             cfg.ssm_state_dim, MAMBA_HEAD_DIM)
+            else:
+                h = cfg.num_heads
+                dk = dv = cfg.d_model // h
+            # per chunk: q k^T and its product with v, the state read and
+            # the state update
+            scan += 2 * batch * nc * h * (c * c * (dk + dv) + 2 * c * dk * dv)
+    flops = (passes * (2 * tokens * layer_elems + attn + scan)
+             + 2 * 4 * tokens * _head_weight(params).numel())
+    n = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = 2 if cfg.dtype == "bfloat16" else 4
+    adamw_bytes = n * (3 * p_bytes + 16)
+    products_ms = 1e3 * flops / BF16_OPS_PER_S
+    adamw_ms = 1e3 * adamw_bytes / HBM_BYTES_PER_S
+    return {"products_tflop": flops / 1e12, "products_ms": products_ms,
+            "adamw_gb": adamw_bytes / 1e9, "adamw_ms": adamw_ms,
+            "bound_ms": products_ms + adamw_ms}
+
+
+# the profiler ranges ``ssm_ranges`` opens, and the part of a train step
+# each names
+SSM_RANGES = {"phase21.chunked_scan": "chunked scan",
+              "phase21.slstm_loop": "sLSTM loop", "phase21.adamw": "adamw"}
+
+
+@contextlib.contextmanager
+def ssm_ranges():
+    """Open a ``torch.profiler`` range around each call of the chunked
+    scan (``ssm.chunked_linear_attention``), of each sLSTM cell and of the
+    train step's AdamW, so a profile can give their forward kernels (and,
+    by sequence number, their backward ones) to them."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm
+    saved = (ssm.chunked_linear_attention, ssm._slstm_cell,
+             steps.adamw_update_)
+
+    def ranged(fn, label):
+        def call(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return call
+    ssm.chunked_linear_attention = ranged(saved[0], "phase21.chunked_scan")
+    ssm._slstm_cell = ranged(saved[1], "phase21.slstm_loop")
+    steps.adamw_update_ = ranged(saved[2], "phase21.adamw")
+    try:
+        yield
+    finally:
+        (ssm.chunked_linear_attention, ssm._slstm_cell,
+         steps.adamw_update_) = saved
+
+
+def ssm_step_split(step):
+    """``step()`` (one eager train step) under ``torch.profiler``; returns
+    its result and its device ms by part: each kernel goes to the chunked
+    scan, the sLSTM loop or AdamW when the op that launched it ran inside
+    one of ``ssm_ranges`` (the forward, remat's recomputation, AdamW) or
+    is the backward of an op that did (linked by the forward thread and
+    autograd sequence number), else to cuBLAS's dense products by kernel
+    name, else to the rest. The window holds ~10^5 ops for xlstm, so it
+    reads the profiler's raw events (``FunctionEvent`` trees of that
+    many take minutes to build) and nests each thread's ops by their
+    time spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with ssm_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        out = step()
+        torch.cuda.synchronize()
+    raw = list(prof.profiler.kineto_results.events())
+    ops = sorted((e for e in raw if e.device_type() != cuda),
+                 key=lambda e: (e.start_thread_id(), e.start_ns(),
+                                -e.duration_ns()))
+    # per CPU event: (its part, the backward node it runs under as (its
+    # forward thread, sequence number)), from its ancestors
+    info, forward, stack = {}, {}, []
+    for e in ops:
+        tid, t0 = e.start_thread_id(), e.start_ns()
+        while stack and (stack[-1][0] != tid or stack[-1][1] <= t0):
+            stack.pop()
+        part, bwd = stack[-1][2] if stack else (None, None)
+        name = e.name()
+        part = SSM_RANGES.get(name, part)
+        if name.startswith("autograd::engine::evaluate_function"):
+            bwd = (e.fwd_thread_id(), e.sequence_nr())
+        if part is not None and e.sequence_nr() >= 0 and bwd is None:
+            forward[(tid, e.sequence_nr())] = part
+        info[e.correlation_id()] = (part, bwd)
+        stack.append((tid, t0 + e.duration_ns(), (part, bwd)))
+    split = {"cublas dense products": 0.0, "chunked scan": 0.0,
+             "sLSTM loop": 0.0, "adamw": 0.0, "the rest": 0.0}
+    for k in raw:
+        # the ranges also show on the device's timeline: not kernels
+        if k.device_type() != cuda or k.name() in SSM_RANGES:
+            continue
+        part, bwd = info.get(k.linked_correlation_id(), (None, None))
+        part = part or forward.get(bwd)
+        if part is None:
+            part = ("cublas dense products" if any(
+                w in k.name().lower() for w in GEMM_NAMES) else "the rest")
+        split[part] += k.duration_ns() / 1e6
+    check(sum(split.values()) > 0 and split["adamw"] > 0,
+          f"phase 21 (e): the eager train step's profile names no kernel "
+          f"or no AdamW: {split}")
+    return out, {"device_ms": sum(split.values()),
+                 "device_ms_by_part": split}
+
+
+def ssm_training(dev, smi, arch, seq=256):
+    """Phase 21 (e) for one arch: ``launch.train --workload lm`` at full
+    width, batch 4 x ``seq`` (two chunks of 128), 3 captured steps; the
+    same 3 steps eager from the same seeded weights, bitwise equal, the
+    last one profiled for its device split."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = launcher.parser().parse_args(
+        ["--workload", "lm", "--arch", arch, "--steps", "3", "--batch", "4",
+         "--seq", str(seq)])
+    rep, state = launcher.run_lm(full)
+    cfg, batch = state["cfg"], state["batch"]
+    tokens = full.batch * full.seq
+    step_ms = 1e3 * tokens / rep["steady_tokens_per_s"]
+    bound = ssm_train_bound(cfg, state["params"], full.batch, full.seq)
+    row = {"arch": rep["arch"], "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "params_b": sum(t.numel() for t in tree_leaves(state["params"]))
+           / 1e9, "batch": full.batch, "seq": full.seq, "lr": full.lr,
+           "losses": rep["losses"], "step_ms": step_ms,
+           "steady_tokens_per_s": rep["steady_tokens_per_s"],
+           "first_step_s": rep["first_step_s"],
+           "compiles": state["step"].compiles,
+           "peak_memory_gb": rep["peak_memory_bytes"] / 1e9,
+           "bound": bound, "bound_share": bound["bound_ms"] / step_ms,
+           "launch_train_s": time.perf_counter() - t0}
+    print(f"phase 21 (e) [{smi}] launch.train --workload lm --arch {arch} "
+          f"(full width): {json.dumps(row)}", flush=True)
+    check(all(np.isfinite(rep["losses"])),
+          f"phase 21 (e): {arch}: a loss is not finite: {rep['losses']}")
+    check(state["step"].compiles == 1,
+          f"phase 21 (e): {arch}: {state['step'].compiles} graphs for one "
+          f"shape")
+    check(rep["peak_memory_bytes"] < 80e9,
+          f"phase 21 (e): {arch}: peak device memory "
+          f"{row['peak_memory_gb']:.2f} GB")
+    captured = [t.clone() for t in tree_leaves(
+        (state["params"], state["opt"].mu, state["opt"].nu,
+         state["opt"].step))]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps eager, from the same seeded weights; the last one
+    # profiled (the profiler changes no result)
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=full.seed)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=full.lr, device=dev, capture=False)
+    losses = [float(step(params, opt, batch)[2])
+              for _ in range(full.steps - 1)]
+    (_, _, loss), row["profile_eager"] = ssm_step_split(
+        lambda: step(params, opt, batch))
+    losses.append(float(loss))
+    same = losses == rep["losses"] and all(
+        torch.equal(a, b) for a, b in zip(
+            captured, tree_leaves((params, opt.mu, opt.nu, opt.step)),
+            strict=True))
+    row["captured_equals_eager"] = same
+    row["eager_steps_s"] = time.perf_counter() - t0
+    print(f"phase 21 (e) [{smi}] {arch}: launch.train's {full.steps} "
+          f"captured steps against {full.steps} eager ones at full width "
+          f"(losses, parameters, moments) bitwise equal: {same}; the last "
+          f"eager step's device split: {json.dumps(row['profile_eager'])}; "
+          f"bound {bound['bound_ms']:.2f} ms, step {step_ms:.2f} ms "
+          f"captured: {row['bound_share']:.3f} of it", flush=True)
+    check(same, f"phase 21 (e): {arch}: captured train steps differ from "
+                f"eager ones")
+    del captured, params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssm_families(dev, smi):
+    """Phase 21: the SSM and hybrid families, ``xlstm_125m`` and
+    ``zamba2_1p2b``. Returns the phase's rows, kernel D's D 64, G 1 row
+    among them."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi,
+           "allocated_gb_at_start": torch.cuda.memory_allocated(dev) / 1e9}
+    print(f"phase 21 [{smi}]: {out['allocated_gb_at_start']:.3f} GB "
+          f"allocated at the start", flush=True)
+    buckets, wall = {}, {}
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        out[arch], buckets[arch] = ssm_serving(dev, smi, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall[f"serve {arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reduced"] = ssm_reduced_card_vs_cpu(dev, smi)
+    wall["reduced"] = time.perf_counter() - t0
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        out[arch]["train"] = ssm_training(dev, smi, arch)
+        wall[f"train {arch}"] = time.perf_counter() - t0
+    out["wall_s"] = wall
+
+    # (f) kernel D at zamba2's serving shape: D 64, G = H / Hkv = 1
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2_1p2b")
+    s_cache, rows = buckets["zamba2_1p2b"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b = int(rows.size)
+    q = torch.randn((b, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s_cache, cfg.num_kv_heads, cfg.head_dim),
+                        generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    out["kernel_d"] = kernel_d_case(
+        q, k, v, torch.as_tensor(rows + 1, dtype=torch.int32, device=dev),
+        b, f"phase 21 (f) zamba2 serving bucket, D {cfg.head_dim}, G 1 "
+           f"(B {b}, S {s_cache}, H {cfg.num_heads}, Hkv "
+           f"{cfg.num_kv_heads})")
+    out["kernel_d"]["launches_zamba2_serve"] = \
+        out["zamba2_1p2b"]["serve"]["kernel_d_launches"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 21: {out['phase_s']:.1f} s wall "
+          f"({json.dumps(wall)})", flush=True)
     return out
 
 
@@ -3902,6 +4497,15 @@ def main():
         if k["name"] == "flash_decode":
             k["shapes"]["moe_serving_g1"] = moe["kernel_d"]
             k["launches_phase20_moe"] = moe["serve"]["kernel_d_launches"]
+
+    # -- 21. the SSM and hybrid families --------------------------------------
+    torch.cuda.empty_cache()
+    ssm = ssm_families(dev, smi)
+    for k in kernels:
+        if k["name"] == "flash_decode":
+            k["shapes"]["zamba2_serving_d64_g1"] = ssm["kernel_d"]
+            k["launches_phase21_zamba2"] = ssm["kernel_d"][
+                "launches_zamba2_serve"]
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
@@ -3928,7 +4532,8 @@ def main():
         "phase19": {k: v for k, v in training.items() if k != "full"},
         "phase19_full": {k: v for k, v in training["full"].items()
                          if k != "losses"},
-        "phase20": {k: v for k, v in moe.items() if k != "kernel_d"}}))
+        "phase20": {k: v for k, v in moe.items() if k != "kernel_d"},
+        "phase21": {k: v for k, v in ssm.items() if k != "kernel_d"}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -8,10 +8,16 @@ report has its keys.
 
 The decode step (:func:`repro_torch.launch.steps.make_decode_step`, then
 the argmax and the length's increment) is a
-:class:`repro_torch.graphs.CapturedStep`: one CUDA graph per bucket on
-the card, the bucket's grown cache bound by address (written in place by
-the graph), the token and lengths donated. ``decode_compiles`` counts its
-graphs, which is the reference's count (one jit compile per bucket).
+:class:`repro_torch.graphs.CapturedStep` of its own for each bucket, all
+in one graph pool: one CUDA graph per bucket on the card, the bucket's
+grown cache bound by address (written in place by the graph: K/V rows
+and, for the SSM and hybrid families, every block's recurrent state), the
+token and lengths donated. A step of its own, because a cache is bound by
+address: two buckets of an SSM (whose states have no sequence axis) may
+give the decode the same shapes, and so one signature, with two caches.
+``decode_compiles`` counts the graphs, one per bucket, which is the
+reference's count (one jit compile per bucket shape) wherever the buckets'
+shapes differ, as every K/V cache's do.
 Prefill runs once per bucket and stays eager: ``prefill_compiles`` is the
 number of prefill graphs, 0 (the reference compiles one per bucket).
 ``capture=False`` decodes eagerly (``decode_compiles`` 0).
@@ -31,7 +37,7 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device, synchronize
-from ..graphs import CapturedStep
+from ..graphs import CapturedStep, new_pool
 from ..models.lm import grow_cache, init_model
 from .steps import make_decode_step, make_prefill_step
 
@@ -47,11 +53,12 @@ def prefill_bucket(length: int) -> int:
 
 
 def make_decode(params: Dict, cfg, device: torch.device,
-                capture: bool = True):
+                capture: bool = True, pool=None):
     """``decode(tokens [B, 1], lengths [B], cache) -> (next tokens,
     lengths + 1, logits [B, V])``: one greedy decode step, writing the
     cache in place; a :class:`CapturedStep` (tokens and lengths donated,
-    the cache borrowed) or, with ``capture=False``, eager."""
+    the cache borrowed; its graphs in ``pool``, default its own) or, with
+    ``capture=False``, eager."""
     step = make_decode_step(cfg)
 
     def decode(tokens, lengths, cache):
@@ -60,8 +67,24 @@ def make_decode(params: Dict, cfg, device: torch.device,
                 logits)
     if not capture:
         return decode
-    return CapturedStep(decode, device, donate=(0, 1), borrow=(2,),
-                        name="decode")
+
+    def warmup(tokens, lengths, cache):
+        # a K/V row written twice holds the same values, but a recurrent
+        # state would advance twice (warm-up, then the first replay): the
+        # warm-up steps copies of the states
+        decode(tokens, lengths, _state_copies(cache))
+    return CapturedStep(decode, device, pool=pool, donate=(0, 1),
+                        borrow=(2,), name="decode", warmup=warmup)
+
+
+def _state_copies(cache: Dict) -> Dict:
+    """``cache`` with every recurrent state (a per-layer cache's leaves
+    other than ``k``/``v``) copied; K/V and a stacked cache are shared."""
+    if not isinstance(cache["layers"], list):
+        return cache
+    return {**cache, "layers": [
+        {n: t if n in ("k", "v") else t.clone() for n, t in c.items()}
+        for c in cache["layers"]]}
 
 
 def serve(args: argparse.Namespace, params: Optional[Dict] = None,
@@ -78,7 +101,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
     rng = np.random.default_rng(args.seed)
     if params is None:
         params = init_model(cfg, device, seed=args.seed)
-    decode = make_decode(params, cfg, device, capture)
+    pool = new_pool(device) if capture else None
     prefill = make_prefill_step(cfg)
 
     lengths = rng.integers(args.min_prompt, args.max_prompt + 1,
@@ -89,8 +112,10 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
     finite = True
     t_prefill = t_decode = 0.0
     bucket_counts: dict = {}
+    compiles = 0
     with torch.no_grad():
         for s_b in sorted(set(buckets.tolist())):
+            decode = make_decode(params, cfg, device, capture, pool)
             idx = np.where(buckets == s_b)[0]
             bucket_counts[int(s_b)] = int(idx.size)
             tokens = rng.integers(1, cfg.vocab_size, (idx.size, s_b))
@@ -114,6 +139,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
                 steps[:, i:i + 1] = next_tok    # before a replay rewrites it
                 next_tok, cur_len, logits = decode(next_tok, cur_len, cache)
             gen[idx] = steps.cpu().numpy()
+            compiles += getattr(decode, "compiles", 0)
             t_decode += time.perf_counter() - t1
             finite = finite and bool(torch.isfinite(logits).all())
 
@@ -123,7 +149,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
         "prefill_buckets": {str(k): v
                             for k, v in sorted(bucket_counts.items())},
         "prefill_compiles": 0,
-        "decode_compiles": getattr(decode, "compiles", 0),
+        "decode_compiles": compiles,
         "new_tokens": args.max_new,
         "prefill_s": t_prefill,
         "decode_s": t_decode,

@@ -1,6 +1,7 @@
-"""Decoder-only language model (dense and MoE): config, layers, attention
-(decode on kernel D), mixture-of-experts layers, prefill/decode, inputs,
-and the reference's weights as the port's."""
+"""Decoder-only language model (dense, MoE, SSM and hybrid): config,
+layers, attention (decode on kernel D), mixture-of-experts layers, the SSM
+and recurrent blocks (:mod:`.ssm`), prefill/decode, inputs, and the
+reference's weights as the port's."""
 from .config import ModelConfig
 from .inputs import SHAPES, InputShape, effective_config, make_batch
 from .lm import (init_cache, init_model, model_hidden_train, prefill_step,

@@ -9,6 +9,11 @@ experts are a list in both layouts (in the reference's, a list of dicts
 whose leaves are stacked over the layers). :func:`params_to_reference`
 goes back: the port's params as the reference's numpy tree, which the
 tests compare with the reference's and the LM checkpoint stores.
+
+A block pattern (xlstm, zamba2) is laid out per layer in both packages:
+the reference's ``layers`` is already a list of per-layer dicts, ``{}`` at
+each ``shared_attn`` position, beside a top-level ``shared_attn``, and its
+cache is a list too. Those trees carry over leaf by leaf, as they are.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .lm import check_supported
+from .lm import check_supported, per_layer
 
 
 def tensor_from_numpy(x: Any, device: torch.device) -> torch.Tensor:
@@ -52,9 +57,12 @@ def _unstack(tree: Any, i: int) -> Any:
 
 def params_from_reference(tree: Dict, cfg: ModelConfig,
                           device: torch.device) -> Dict:
-    """The reference's params (numpy leaves, scan-stacked ``layers``) as the
-    port's (one dict per layer) on ``device``."""
+    """The reference's params (numpy leaves, scan-stacked ``layers``, or
+    per-layer ones for a block pattern) as the port's (one dict per
+    layer) on ``device``."""
     check_supported(cfg)
+    if per_layer(cfg):
+        return _tree(tree, device)
     params = _tree({k: v for k, v in tree.items() if k != "layers"}, device)
     stacked = _tree(tree["layers"], device)
     params["layers"] = [_unstack(stacked, i) for i in range(cfg.num_layers)]
@@ -62,8 +70,11 @@ def params_from_reference(tree: Dict, cfg: ModelConfig,
 
 
 def cache_from_reference(tree: Dict, device: torch.device) -> Dict:
-    """The reference's decode cache (numpy leaves, ``layers`` k/v stacked
-    ``[L, B, S, Hkv, Dh]``) as the port's, which has the same layout."""
+    """The reference's decode cache (numpy leaves: ``layers`` k/v stacked
+    ``[L, B, S, Hkv, Dh]``, or a per-layer list of K/V and block states)
+    as the port's, which has the same layout."""
+    if isinstance(tree["layers"], (list, tuple)):
+        return {"layers": _tree(tree["layers"], device)}
     return {"first_dense": [], "layers": _tree(tree["layers"], device)}
 
 
@@ -98,9 +109,11 @@ def _stack(layers: List[Any]) -> Any:
 
 def params_to_reference(params: Dict, cfg: ModelConfig) -> Dict:
     """The port's params (one dict per layer) as the reference's: numpy
-    leaves, ``layers`` scan-stacked to ``[L, ...]``. The inverse of
-    :func:`params_from_reference`."""
+    leaves, ``layers`` scan-stacked to ``[L, ...]`` (kept per layer for a
+    block pattern). The inverse of :func:`params_from_reference`."""
     check_supported(cfg)
+    if per_layer(cfg):
+        return _numpy_tree(params)
     tree = _numpy_tree({k: v for k, v in params.items() if k != "layers"})
     tree["layers"] = _stack([_numpy_tree(lp) for lp in params["layers"]])
     return tree

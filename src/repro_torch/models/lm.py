@@ -1,5 +1,6 @@
-"""Decoder-only language model (dense and MoE): init, the train forward
-and its chunked loss, prefill, KV cache, decode.
+"""Decoder-only language model (dense, MoE, SSM and hybrid): init, the
+train forward and its chunked loss, prefill, KV cache and recurrent
+state, decode.
 
 Structure (the reference's names, one entry per layer instead of its
 scan-stacked leaves)::
@@ -7,17 +8,35 @@ scan-stacked leaves)::
     params = {
       "embed":      [V, d] token embedding
       "layers":     [{"ln1", "attn", "ln2", "ffn"}, ...]   one dict a layer
+      "shared_attn": {"ln1", "attn", "ln2", "ffn"}          (zamba2)
       "final_norm", "head" ([d, V], absent when tied)
     }
     ffn = {"w_gate", "w_up", "w_out"}                      a dense layer's
     ffn = {"router", "w_gate", "w_up", "w_out", "shared": [ffn, ...]}
                                                            an MoE layer's
+
+A homogeneous attention stack (no block pattern, ``scan_layers``) keeps
+the reference's stacked cache, so layer ``i`` attends over the contiguous
+view ``cache["layers"]["k"][i]``::
+
     cache = {"first_dense": [], "layers": {"k": [L, B, S, Hkv, Dh],
                                            "v": [L, B, S, Hkv, Dh]}}
 
-The cache keeps the reference's stacked layout, so layer ``i`` attends over
-the contiguous view ``cache["layers"]["k"][i]``. ``serve_step`` writes each
-new K/V row into it in place.
+A block pattern (``cfg.blocks``: ``mlstm``, ``slstm``, ``mamba``,
+``attn``, ``shared_attn``) takes the reference's per-layer layout: each
+``layers`` entry holds its kind's block (:mod:`repro_torch.models.ssm`:
+norm, block, residual, no FFN) or an attention layer, ``{}`` at a
+``shared_attn`` position, whose weights are ``params["shared_attn"]``,
+one layer applied at each such position (its gradient is the sum over
+its applications)::
+
+    cache = {"layers": [{"k", "v"} | mamba {"ssm", "conv"}
+                        | mlstm {"S", "n"} | slstm {"h", "c", "n", "m"},
+                        ...]}
+
+``serve_step`` writes each new K/V row into the cache in place, and
+copies each block's new state into the cache's own tensors, so a decode
+captured with the cache bound by address reads and writes the live state.
 
 Training (:func:`train_loss`) loops over the layers, each wrapped in
 :func:`_remat` when ``cfg.remat`` is set, and takes the next-token loss in
@@ -25,13 +44,14 @@ sequence chunks (:func:`chunked_ce_loss`): each chunk's ``[B, c, V]``
 logits are computed, reduced and dropped, and recomputed in the backward,
 so no more than one chunk's logits ever exists.
 
-This slice ports the homogeneous attention stack (dense and GQA families:
-qwen3, qwen1.5, glm4, nemotron) and its mixture-of-experts variant, every
-layer's FFN a :mod:`repro_torch.models.moe` layer (qwen2-moe): its router's
-aux loss adds into the training loss, prefill drops it, decode runs
-:func:`moe_decode`. MLA, leading dense layers before the experts
-(deepseek's ``first_k_dense``), block patterns (SSM, hybrid), encoders and
-modality frontends raise ``NotImplementedError``.
+The port runs the homogeneous attention stack (dense and GQA families:
+qwen3, qwen1.5, glm4, nemotron), its mixture-of-experts variant, every
+layer's FFN a :mod:`repro_torch.models.moe` layer (qwen2-moe): its
+router's aux loss adds into the training loss, prefill drops it, decode
+runs :func:`moe_decode`; and the block patterns of the SSM (xlstm) and
+hybrid (zamba2) families. MLA, leading dense layers before the experts
+(deepseek's ``first_k_dense``), encoders and modality frontends raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,6 +69,7 @@ from .config import ModelConfig
 from .layers import (apply_norm, ffn_forward, init_ffn, init_norm, normal,
                      torch_dtype)
 from .moe import init_moe, moe_decode, moe_forward
+from .ssm import BLOCKS
 
 Params = Dict
 Cache = Dict
@@ -65,21 +86,41 @@ def check_supported(cfg: ModelConfig) -> None:
         ("MLA attention", cfg.mla),
         ("leading dense layers before the experts",
          cfg.num_experts > 0 and cfg.first_k_dense > 0),
-        ("SSM/hybrid block patterns", bool(cfg.block_pattern)),
         ("an encoder", cfg.encoder_layers > 0),
         (f"the {cfg.frontend} frontend", cfg.frontend != "none")) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are not ported yet; the "
-            f"port's LM runs dense and MoE attention stacks only (MLA, SSM "
-            f"and enc-dec families are a later slice of the port)")
+            f"port's LM runs dense and MoE attention stacks and the SSM and "
+            f"hybrid block patterns (MLA, enc-dec and VLM families are a "
+            f"later slice of the port)")
+
+
+def per_layer(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` takes the reference's per-layer layout (a block
+    pattern, or layers not scan-stacked) rather than its stacked cache."""
+    return bool(cfg.block_pattern) or not cfg.scan_layers
+
+
+def _layer(params: Params, i: int, kind: str
+           ) -> Tuple[Dict, str]:
+    """Layer ``i``'s weights and the kind they run as: the shared block's
+    for a ``shared_attn`` position, an attention layer's."""
+    if kind == "shared_attn":
+        return params["shared_attn"], "attn"
+    return params["layers"][i], kind
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, device: torch.device,
-                gen: torch.Generator, moe: bool) -> Dict:
+                gen: torch.Generator, kind: str, moe: bool) -> Dict:
+    if kind in BLOCKS:
+        return {"ln1": init_norm(cfg, device),
+                kind: BLOCKS[kind].init(cfg, device, gen)}
+    if kind != "attn":
+        raise ValueError(kind)
     return {"ln1": init_norm(cfg, device),
             "attn": init_attention(cfg, device, gen),
             "ln2": init_norm(cfg, device),
@@ -99,9 +140,14 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
         "embed": normal((cfg.vocab_size, cfg.d_model), 0.02, dt, device,
                         gen),
         "final_norm": init_norm(cfg, device),
-        "layers": [_init_layer(cfg, device, gen, cfg.is_moe_layer(i))
-                   for i in range(cfg.num_layers)],
+        # {} at a shared_attn position: its weights are params["shared_attn"]
+        "layers": [{} if kind == "shared_attn" else
+                   _init_layer(cfg, device, gen, kind, cfg.is_moe_layer(i))
+                   for i, kind in enumerate(cfg.blocks)],
     }
+    if "shared_attn" in cfg.blocks:
+        params["shared_attn"] = _init_layer(cfg, device, gen, "attn",
+                                            moe=False)
     if not cfg.tie_embeddings:
         params["head"] = normal((cfg.d_model, cfg.vocab_size),
                                 (1.0 / cfg.d_model) ** 0.5, dt, device, gen)
@@ -138,13 +184,17 @@ def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
                        x: torch.Tensor, positions: torch.Tensor,
                        memory: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer over the whole sequence; returns ``(x, aux_loss)``. The
-    ported kind is an attention layer, dense (aux loss 0) or MoE (its
-    router's aux loss)."""
-    if kind != "attn" or memory is not None:
+    """One layer over the whole sequence; returns ``(x, aux_loss)``: an
+    attention layer, dense (aux loss 0) or MoE (its router's aux loss),
+    or a block of :mod:`repro_torch.models.ssm` (aux loss 0)."""
+    if memory is not None or kind not in ("attn",) + tuple(BLOCKS):
         raise NotImplementedError(
-            f"{cfg.name}: only attention layers train in the port "
-            f"(got kind={kind!r}, memory={memory is not None})")
+            f"{cfg.name}: layer kind {kind!r} (memory "
+            f"{memory is not None}) does not train in the port")
+    if kind in BLOCKS:
+        out, _ = BLOCKS[kind].forward(p[kind], cfg, apply_norm(p["ln1"], x))
+        return x + out, torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
     x = x + attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
                             positions)
     h = apply_norm(p["ln2"], x)
@@ -165,8 +215,9 @@ def model_hidden_train(params: Params, cfg: ModelConfig,
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i, lp in enumerate(params["layers"]):
-        f = _remat(functools.partial(_apply_layer_train, lp, cfg, "attn",
+    for i, kind in enumerate(cfg.blocks):
+        lp, kind = _layer(params, i, kind)
+        f = _remat(functools.partial(_apply_layer_train, lp, cfg, kind,
                                      cfg.is_moe_layer(i)), cfg)
         x, a = f(x, positions)
         aux_total = aux_total + a
@@ -231,12 +282,19 @@ def train_loss(params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def _apply_layer_prefill(p: Dict, cfg: ModelConfig, moe: bool,
+def _apply_layer_prefill(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
                          x: torch.Tensor, positions: torch.Tensor
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One attention layer over the whole prompt; returns ``(x, {"k", "v"})``
-    with this layer's cache entry ``[B, S, Hkv, Dh]``. An MoE layer's aux
-    loss is dropped, as in the reference."""
+    """One layer over the whole prompt; returns ``(x, cache entry)``: an
+    attention layer's ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` (an MoE layer's
+    aux loss is dropped, as in the reference), or a block's final state
+    (mamba's with its conv tail)."""
+    if kind in BLOCKS:
+        fwd = BLOCKS[kind].forward
+        h = apply_norm(p["ln1"], x)
+        out, c = (fwd(p[kind], cfg, h, return_state=True) if kind == "mamba"
+                  else fwd(p[kind], cfg, h))
+        return x + out, c
     out, k, v = attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
                                 positions, return_kv=True)
     x = x + out
@@ -257,35 +315,49 @@ def prefill_step(params: Params, cfg: ModelConfig,
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    ks: List[torch.Tensor] = []
-    vs: List[torch.Tensor] = []
-    for i, lp in enumerate(params["layers"]):
-        x, c = _apply_layer_prefill(lp, cfg, cfg.is_moe_layer(i), x,
+    entries: List[Dict[str, torch.Tensor]] = []
+    for i, kind in enumerate(cfg.blocks):
+        lp, kind = _layer(params, i, kind)
+        x, c = _apply_layer_prefill(lp, cfg, kind, cfg.is_moe_layer(i), x,
                                     positions)
-        ks.append(c["k"])
-        vs.append(c["v"])
+        entries.append(c)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, -1] @ _head_weight(params)).float()
-    cache = {"first_dense": [],
-             "layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    if per_layer(cfg):
+        cache: Cache = {"layers": entries}
+    else:
+        cache = {"first_dense": [],
+                 "layers": {n: torch.stack([c[n] for c in entries])
+                            for n in ("k", "v")}}
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return logits, cache, lengths
 
 
+def _grow(t: torch.Tensor, axis: int, target_len: int) -> torch.Tensor:
+    """``t`` with ``axis`` grown to ``target_len``: allocated once at full
+    length, ``t`` copied in, the rest zero."""
+    s = t.shape[axis]
+    if s >= target_len:
+        return t
+    shape = list(t.shape)
+    shape[axis] = target_len
+    grown = t.new_zeros(shape)
+    grown.narrow(axis, 0, s).copy_(t)
+    return grown
+
+
 def grow_cache(cache: Cache, target_len: int) -> Cache:
-    """The cache with its sequence axis grown to ``target_len``: allocated
-    once at full length, the prefill's K/V copied in, the rest zero."""
+    """The cache with its K/V sequence axis grown to ``target_len``. A
+    per-layer cache's recurrent states keep their shapes and are copied,
+    so the grown cache owns every tensor that decode writes in place."""
     out = dict(cache)
-    layers = {}
-    for name, t in cache["layers"].items():
-        s = t.shape[2]
-        if s >= target_len:
-            layers[name] = t
-            continue
-        grown = t.new_zeros(t.shape[:2] + (target_len,) + t.shape[3:])
-        grown[:, :, :s] = t
-        layers[name] = grown
-    out["layers"] = layers
+    if isinstance(cache["layers"], list):
+        out["layers"] = [{n: (_grow(t, 1, target_len) if n in ("k", "v")
+                              else t.clone()) for n, t in c.items()}
+                         for c in cache["layers"]]
+    else:
+        out["layers"] = {n: _grow(t, 2, target_len)
+                         for n, t in cache["layers"].items()}
     return out
 
 
@@ -294,17 +366,26 @@ def grow_cache(cache: Cache, target_len: int) -> Cache:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = "cuda") -> Cache:
-    """Zero KV cache ``[L, B, S, Hkv, Dh]``; a sliding-window config's is
-    only ``cfg.window`` long (a ring buffer)."""
+    """Zero cache: K/V ``[L, B, S, Hkv, Dh]`` for a homogeneous stack, a
+    sliding-window config's only ``cfg.window`` long (a ring buffer); per
+    layer for a block pattern, each block's zero state."""
     check_supported(cfg)
     device = resolve_device(device)
     s_att = min(seq_len, cfg.window) if cfg.attention == "sliding" \
         else seq_len
-    shape = (cfg.num_layers, batch, s_att, cfg.num_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg)
-    return {"first_dense": [],
-            "layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)}}
+    if not per_layer(cfg):
+        shape = (cfg.num_layers, batch, s_att, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"first_dense": [],
+                "layers": {"k": torch.zeros(shape, dtype=dt, device=device),
+                           "v": torch.zeros(shape, dtype=dt, device=device)}}
+    shape = (batch, s_att, cfg.num_kv_heads, cfg.head_dim)
+    return {"layers": [
+        BLOCKS[kind].zero_state(cfg, batch, device) if kind in BLOCKS else
+        {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+        for kind in cfg.blocks]}
 
 
 def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -319,17 +400,39 @@ def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
     return x + ffn_forward(lp["ffn"], cfg, h)
 
 
+def _decode_block(lp: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                  state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One block's decode step; its new state is copied into ``state``'s
+    own tensors (each new value is a fresh tensor, never a view of the
+    old state)."""
+    out, new = BLOCKS[kind].decode(lp[kind], cfg,
+                                   apply_norm(lp["ln1"], x), state)
+    for name, t in new.items():
+        state[name].copy_(t)
+    return x + out
+
+
 def serve_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                cache: Cache, lengths: torch.Tensor
                ) -> Tuple[torch.Tensor, Cache]:
     """Decode ONE token. tokens: ``[B, 1]``; lengths: ``[B]`` int32 (the
     current cache fill). Returns ``(logits [B, V] f32, cache)``: the same
-    cache object, with this token's K/V written in place."""
+    cache object, with this token's K/V rows and every block's new state
+    written in place."""
     check_supported(cfg)
     x = params["embed"][tokens]                      # [B, 1, d]
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(params["layers"]):
-        x = _decode_attn_layer(lp, cfg, x, ck[i], cv[i], lengths)
+    if per_layer(cfg):
+        for i, kind in enumerate(cfg.blocks):
+            lp, kind = _layer(params, i, kind)
+            c = cache["layers"][i]
+            if kind in BLOCKS:
+                x = _decode_block(lp, cfg, kind, x, c)
+            else:
+                x = _decode_attn_layer(lp, cfg, x, c["k"], c["v"], lengths)
+    else:
+        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        for i, lp in enumerate(params["layers"]):
+            x = _decode_attn_layer(lp, cfg, x, ck[i], cv[i], lengths)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, 0] @ _head_weight(params)).float()
     return logits, cache

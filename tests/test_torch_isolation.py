@@ -11,8 +11,9 @@
   no profile is written on a fallback device) too, and the LM's
   (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``),
   the training CLI (``python -m repro_torch.launch.train``, both
-  workloads, which loads neither ``jax`` nor ``repro`` either) and the LM's
-  train step; ``chip_smoke.py`` exits
+  workloads, which loads neither ``jax`` nor ``repro`` either), the LM's
+  train step and ``examples/long_context_serving_torch.py`` (which loads
+  neither either); ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
   repository is absent.
 """
@@ -80,6 +81,8 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.optim.schedules"} <= set(got["mods"])
     assert {"repro_torch.models.moe",
             "repro_torch.configs.qwen2_moe_a2p7b"} <= set(got["mods"])
+    assert {"repro_torch.models.ssm", "repro_torch.configs.xlstm_125m",
+            "repro_torch.configs.zamba2_1p2b"} <= set(got["mods"])
     assert {"repro_torch.core.registry", "repro_torch.core.partitioners",
             "repro_torch.core.spec", "repro_torch.core.metrics",
             "repro_torch.pipeline.artifacts",
@@ -279,6 +282,53 @@ def test_train_cli_needs_a_gpu_unless_told_cpu_and_loads_no_reference(
         assert out.returncode == 0, out.stderr
         report = json.loads(out.stdout[:out.stdout.rindex("\n{")])
         assert report["workload"] == workload
+
+
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.path[:0] = [{src!r}]
+sys.argv = [{path!r}] + {argv!r}
+code = None
+try:
+    runpy.run_path({path!r}, run_name="__main__")
+except SystemExit as e:
+    code = e.code
+finally:
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+    print(json.dumps({{"code": code, "bad": bad}}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_long_context_example_needs_a_gpu_unless_told_cpu(device):
+    """``examples/long_context_serving_torch.py`` raises without a GPU
+    unless given ``--device cpu``, then prints the reference example's
+    three lines (reduced xlstm, reduced zamba2, qwen3 at a 128-token
+    window; their caches 0.1, 0.1 and 2.2 MB, as the reference's), and
+    loads neither ``jax`` nor ``repro``."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    path = os.path.join(ROOT, "examples", "long_context_serving_torch.py")
+    argv = ["--device", device] if device else []
+    out = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_RUNNER.format(
+            src=os.path.join(ROOT, "src"), path=path, argv=argv)],
+        capture_output=True, text=True, timeout=180, env=env, cwd=ROOT)
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["bad"] == []
+    if device is None:
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+        return
+    assert out.returncode == 0, out.stderr
+    rows = lines[:-1]
+    assert [r[:28].strip() for r in rows] == [
+        "xlstm-125m (reduced)", "zamba2-1.2b (reduced)",
+        "qwen3-4b (reduced, sw128)"]
+    assert all("prompt=512 +32 tok:" in r and r.endswith("finite=True")
+               for r in rows)
+    assert [r.split("cache=")[1].split("MB")[0].strip() for r in rows] == [
+        "0.1", "0.1", "2.2"]
 
 
 # ``python -m repro_torch.serving`` in a fresh interpreter; it prints which

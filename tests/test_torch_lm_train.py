@@ -429,7 +429,7 @@ def test_unported_families_raise_in_training():
     leading_dense = dataclasses.replace(
         get_config("qwen2_moe_a2p7b").reduced(), first_k_dense=1)
     for cfg in [get_config(arch).reduced() for arch in (
-            "deepseek_v2_236b", "xlstm_125m",
+            "deepseek_v2_236b",
             "seamless_m4t_large_v2")] + [leading_dense]:
         with pytest.raises(NotImplementedError, match="later slice"):
             lm.model_hidden_train({}, cfg,
