@@ -6,8 +6,11 @@ serving commands (``replay``, ``serve``, ``client``), the kernel
 autotuner, the compiled steps (CUDA graphs) and
 ``repro_torch.launch.train`` (the GNN workload and LM training, qwen3_4b
 at full width), the MoE family (qwen2_moe_a2p7b served at full width,
-trained reduced) and the SSM and hybrid families (xlstm_125m and
-zamba2_1p2b served and trained at full width) on one NVIDIA GPU.
+trained reduced), the SSM and hybrid families (xlstm_125m and
+zamba2_1p2b served and trained at full width) and deepseek_v2_236b (MLA,
+a leading dense layer, 160 routed experts: served at full width and cut
+depth, its experts placed by Leiden-Fusion, trained reduced) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -285,7 +288,35 @@ Phases, each fatal on failure:
    ``ssm_step_split``); (f) kernel D
    at zamba2's serving shape, D 64, G 1 (H = Hkv 32, bf16), against its
    plain version, timed beside its bound and
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``;
+22. deepseek-v2 and expert placement, ``deepseek_v2_236b`` at its
+   published width (d_model 5,120, 128 heads, q/kv LoRA 1,536/512,
+   nope/rope/v 128/64/128, 160 routed experts top-6 + 2 shared of d_ff
+   1,536, a dense layer 0 of d_ff 12,288, vocab 102,400, bf16, seeded),
+   its depth cut from 60 to ``DEEPSEEK_LAYERS`` (one card holds no more
+   beside prefill; every earlier model released first): (a)
+   ``launch.serve.serve`` on phase 9's requests: logits finite, one
+   decode graph a bucket, no prefill graph, kernel D 0 launches (MLA
+   decode is plain products, as in the reference); peak GB and the
+   latent cache's bytes a token a layer beside the expanded K/V's; the
+   largest bucket's decode step bound (``mla_decode_bound``); (c) that
+   bucket's 32 decode steps captured and eager from one prefill, tokens
+   and every ckv/krope leaf bitwise equal, ms a step and a profile of
+   each by kernel (cuBLAS, gather, the rest); (d) MoE layer 1's top-6
+   choices for every prompt token of that bucket
+   (``expert_placement.router_top_k``), 160 experts placed on 8 shards
+   by ``lf_expert_placement`` (20 a shard), its cost beside the
+   contiguous placement's and its wall seconds; every MoE layer permuted
+   by it, one decode step: the same argmax tokens, logits within
+   ``LM_BF16_TOL`` of the unpermuted model's; (e) ``launch.train
+   --workload lm --arch deepseek_v2_236b --reduced``, 4 steps: one
+   captured graph, the loss finite and falling; (b) last, on a 2-layer
+   copy (layer 0 dense, layer 1 MoE) at full width: one decode step of
+   the largest bucket with bf16 weights, on the f32 step's expert
+   choices, against the same step with the weights in f32 at
+   ``LM_BF16_TOL`` (on its own choices printed), and MLA's absorbed
+   decode against the expanded form over each layer's cache in f32
+   within ``MLA_RTOL`` of the largest output.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
 directory of its own, so no user cache reaches a phase: phases 1-16
@@ -362,6 +393,17 @@ MOE_KERNELS = (("kernel D", ("flash_decode",)),
                ("gather (expert weights, embedding rows)",
                 ("indexselect", "index_elementwise", "gather")),
                ("cuBLAS products", GEMM_NAMES + ("gemv",)))
+DEEPSEEK_ARCH = "deepseek_v2_236b"
+# 60 layers cut to this depth: 8 full-width layers hold 29.19 B
+# parameters, 58.4 GB in bf16, and leave room for prefill on one 80 GB card
+DEEPSEEK_LAYERS = 8
+PLACEMENT_SHARDS = 8
+MLA_RTOL = 1e-4        # absorbed MLA decode against the expanded form, f32,
+                       # of the largest output
+# device kernels of an MLA/MoE decode step by name, first match wins
+MLA_KERNELS = (("cuBLAS products", GEMM_NAMES + ("gemv", "splitk")),
+               ("gather (expert weights, embedding rows, cache rows)",
+                ("index", "gather", "scatter")))
 
 
 def check(ok, what):
@@ -3057,16 +3099,19 @@ def launch_train_on_card(dev, smi):
 
 
 @contextlib.contextmanager
-def moe_routing(record=None, replay=None):
+def moe_routing(record=None, replay=None, inputs=None):
     """Record each MoE layer's expert choice (``record``: a list to append
     ``[B, K]`` indices to, in call order) or replay recorded ones
     (``replay``: the gates are this call's own probabilities at the
-    replayed experts, renormalised as the router does)."""
+    replayed experts, renormalised as the router does); ``inputs``: a list
+    to append each router call's hidden states to."""
     from repro_torch.models import moe as moe_mod
     route = moe_mod._route
     chosen = iter(replay or ())
 
     def routed(p, c, x):
+        if inputs is not None:
+            inputs.append(x)
         probs, gate, idx = route(p, c, x)
         if replay is not None:
             idx = next(chosen)
@@ -4067,6 +4112,389 @@ def ssm_families(dev, smi):
     return out
 
 
+def serve_prompts(args, vocab):
+    """The prompts ``launch.serve.serve`` draws for ``args``: its lengths,
+    then each bucket's tokens in bucket order, from the same numpy seed
+    (``{bucket: (request ids, tokens)}``, the lengths)."""
+    import numpy as np
+    from repro_torch.launch.serve import prefill_bucket
+    rng = np.random.default_rng(args.seed)
+    lengths = rng.integers(args.min_prompt, args.max_prompt + 1,
+                           args.requests)
+    buckets = np.array([prefill_bucket(int(s)) for s in lengths])
+    out = {}
+    for s_b in sorted(set(buckets.tolist())):
+        idx = np.where(buckets == s_b)[0]
+        out[s_b] = (idx, rng.integers(1, vocab, (idx.size, s_b)))
+    return out, lengths
+
+
+def mla_decode_bound(params, cfg, tokens, cache, lengths):
+    """``moe_decode_bound`` extended to MLA and the leading dense layers:
+    the bytes one decode step must read (every layer's attention and
+    norms, the dense layers' FFNs, each MoE layer's router and shared
+    experts, the routed experts its rows chose counted once, the latent
+    cache up to each row's length with the new row, the head and the
+    tokens' embedding rows) and write (the logits), over 3.35 TB/s, or its
+    products at the bf16 dense rate, the larger."""
+    import torch
+    from repro_torch.models.lm import serve_step
+    from repro_torch.tree import tree_leaves
+    chosen = []
+    with torch.no_grad(), moe_routing(chosen):
+        serve_step(params, cfg, tokens, cache, lengths)
+    torch.cuda.synchronize()
+
+    def size(t):
+        return t.numel() * t.element_size()
+    rows = tokens.shape[0]
+    routed = ("w_gate", "w_up", "w_out")
+    touched = [int(torch.unique(i).numel()) for i in chosen]
+    weights = active = 0
+    for lp in params["first_dense"]:
+        weights += sum(size(t) for t in tree_leaves(lp))
+    active = weights
+    for lp, n in zip(params["layers"], touched, strict=True):
+        ffn = lp["ffn"]
+        dense = sum(size(t) for t in tree_leaves(
+            {k: v for k, v in lp.items() if k != "ffn"}))
+        dense += sum(size(t) for t in tree_leaves(
+            {k: v for k, v in ffn.items() if k not in routed}))
+        expert = sum(size(ffn[k][0]) for k in routed)
+        weights += dense + n * expert
+        active += dense + cfg.top_k * expert
+    filled = int((lengths + 1).sum())
+    width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    elem = params["embed"].element_size()
+    latent = cfg.num_layers * filled * width * elem
+    head = size(params["head"]) + rows * cfg.d_model * elem
+    logits = rows * cfg.vocab_size * 4
+    nbytes = weights + latent + head + logits
+    h, dn, dv, kvr = (cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim,
+                      cfg.kv_lora_rank)
+    # 2 flops a weight element a row; absorbed attention: W_uk into the
+    # query and W_uv out of the context a row, the logits and the context
+    # over the filled rows
+    attn = cfg.num_layers * (2 * rows * h * kvr * (dn + dv)
+                             + 2 * filled * h * (width + kvr))
+    ops = 2 * rows * (active + size(params["head"])) / elem + attn
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return {"bytes_gb": nbytes / 1e9, "weights_gb": weights / 1e9,
+            "latent_cache_gb": latent / 1e9, "head_gb": head / 1e9,
+            "experts_touched_per_layer": touched,
+            "gflop": ops / 1e9, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def mla_expanded_decode(p, cfg, x, ckv, krope, length):
+    """MLA decode in the expanded form over a latent cache that already
+    holds this token's row: per-head ``K = [ckv W_uk, krope]`` and
+    ``V = ckv W_uv``, then the softmax over the rows up to ``length``
+    (f32 throughout)."""
+    import torch
+    from repro_torch.models.attention import _mla_qkv
+    b, s = ckv.shape[:2]
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, _, _ = _mla_qkv(p, cfg, x, length[:, None])
+    q = torch.cat([q_nope, q_rope], dim=-1)[:, 0]            # [B, H, Dn+Dr]
+    k = torch.cat([(ckv @ p["w_uk"]).reshape(b, s, h, dn),
+                   krope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    v = (ckv @ p["w_uv"]).reshape(b, s, h, dv)
+    logits = torch.einsum("bhd,bshd->bhs", q, k) * (dn + dr) ** -0.5
+    valid = torch.arange(s, device=x.device)[None, :] <= length[:, None]
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.full((), -1e30, device=x.device))
+    out = torch.einsum("bhs,bshd->bhd", torch.softmax(logits, dim=-1), v)
+    return out.reshape(b, 1, h * dv) @ p["wo"]
+
+
+def deepseek_family(dev, smi):
+    """Phase 22: deepseek-v2 (MLA, a leading dense layer, 160 routed
+    experts) served at full width and cut depth, its expert placement, and
+    its reduced training. Returns the phase's rows."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.expert_placement import (
+        apply_placement_to_params, contiguous_placement,
+        lf_expert_placement, placement_cost, router_top_k)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.serve import make_decode, serve
+    from repro_torch.models.attention import mla_decode
+    from repro_torch.models.lm import (grow_cache, init_model, prefill_step,
+                                       serve_step)
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi,
+           "allocated_gb_at_start": torch.cuda.memory_allocated(dev) / 1e9}
+    print(f"phase 22 [{smi}]: {out['allocated_gb_at_start']:.3f} GB "
+          f"allocated at the start", flush=True)
+
+    # (a) launch.serve at full width, depth cut, phase 9's requests
+    full = get_config(DEEPSEEK_ARCH)
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    args = argparse.Namespace(arch=DEEPSEEK_ARCH, reduced=False, requests=8,
+                              min_prompt=64, max_prompt=1024, max_new=32,
+                              seed=0, device="cuda")
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize()
+    out["cut"] = {"num_layers": cfg.num_layers,
+                  "published_num_layers": full.num_layers,
+                  "params_b": cfg.param_count() / 1e9,
+                  "published_params_b": full.param_count() / 1e9,
+                  "weights_gb": sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(params)) / 1e9}
+    print(f"phase 22 (a) {cfg.name}: d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, q/kv LoRA {cfg.q_lora_rank}/"
+          f"{cfg.kv_lora_rank}, nope/rope/v {cfg.qk_nope_head_dim}/"
+          f"{cfg.qk_rope_head_dim}/{cfg.v_head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.top_k} + {cfg.num_shared_experts} shared of "
+          f"d_ff {cfg.moe_d_ff}, {cfg.first_k_dense} dense layer of d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; depth cut from "
+          f"{full.num_layers} to {cfg.num_layers} layers (one card): "
+          f"{out['cut']['params_b']:.3f} B parameters "
+          f"({out['cut']['weights_gb']:.2f} GB; the published depth holds "
+          f"{out['cut']['published_params_b']:.1f} B) seeded on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = serve(args, params=params, cfg=cfg)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    n_buckets = len(report["prefill_buckets"])
+    out["serve"] = {**{k: report[k] for k in (
+        "prefill_buckets", "prefill_s", "decode_s", "decode_tok_per_s",
+        "decode_compiles", "prefill_compiles", "finite",
+        "sample_generation")},
+        "kernel_d_launches": launches,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print(f"phase 22 (a) [{smi}] launch.serve --arch {DEEPSEEK_ARCH} "
+          f"({cfg.num_layers} layers): {json.dumps(out['serve'])}",
+          flush=True)
+    check(report["finite"], "phase 22 (a): non-finite deepseek logits")
+    check(report["decode_compiles"] == n_buckets
+          and report["prefill_compiles"] == 0,
+          f"phase 22 (a): decode graphs {report['decode_compiles']} for "
+          f"{n_buckets} buckets, prefill graphs "
+          f"{report['prefill_compiles']}")
+    check(launches == 0,
+          f"phase 22 (a): kernel D launched {launches} times; MLA decode "
+          f"launches none, as in the reference")
+
+    # the largest bucket's own prompts, rows at their own lengths
+    prompts, lengths = serve_prompts(args, cfg.vocab_size)
+    s_b = max(prompts)
+    idx, toks = prompts[s_b]
+    rows = lengths[idx]
+    prompt = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    n_steps = args.max_new
+    hidden = []
+    with torch.no_grad(), moe_routing(inputs=hidden):
+        logits, cache, _ = prefill_step(params, cfg, {"tokens": prompt})
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    layer1_h = hidden[0]                 # MoE layer 1's FFN input
+    del hidden
+    n_cached = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    per_token_layer = n_cached / (rows.size * s_b * cfg.num_layers)
+    expanded = cfg.num_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                                + cfg.v_head_dim) * 2
+    out["cache_bytes_per_token_layer"] = {"latent": per_token_layer,
+                                          "expanded_kv": expanded}
+    print(f"phase 22 (a) [{smi}] peak {out['serve']['peak_gb']:.2f} GB; "
+          f"cache {per_token_layer:.0f} B a token a layer (ckv + krope, "
+          f"bf16), against {expanded} B for the expanded per-head K/V",
+          flush=True)
+
+    # the step's bound at the largest bucket's first step
+    grown = grow_cache(cache, s_b + n_steps)
+    bound = mla_decode_bound(params, cfg, first, grown, cur)
+    out["bound"] = bound
+    print(f"phase 22 (b) [{smi}] decode step bound at the bucket's first "
+          f"step: {json.dumps(bound)}", flush=True)
+    del grown
+
+    # (c) the largest bucket's decode, captured and eager, from one prefill
+    decoded, runs = {}, {}
+    with torch.no_grad():
+        for capture in (True, False):
+            path = "captured" if capture else "eager"
+            decode = make_decode(params, cfg, dev, capture)
+            grown = grow_cache(cache, s_b + n_steps + 8)
+            tok, lens = first, cur.clone()
+            steps = torch.empty((rows.size, n_steps), dtype=torch.int32,
+                                device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lens, _ = decode(tok, lens, grown)
+            steps[:, :1] = tok
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(1, n_steps):
+                tok, lens, _ = decode(tok, lens, grown)
+                steps[:, i:i + 1] = tok
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded[capture] = [steps.clone()] + [
+                t.clone() for t in tree_leaves(grown)]
+
+            def more():
+                nonlocal tok, lens
+                tok, lens, _ = decode(tok, lens, grown)
+            ms = 1e3 * (t2 - t1) / (n_steps - 1)
+            runs[path] = {"first_step_ms": 1e3 * (t1 - t0),
+                          "ms_per_step": ms,
+                          "tok_per_s": rows.size * 1e3 / ms,
+                          "bound_share": bound["bound_ms"] / ms,
+                          "profile": profile_by_kernel(
+                              more, MLA_KERNELS, "the rest")}
+            print(f"phase 22 (c) [{smi}] deepseek decode {path}, bucket "
+                  f"{s_b}, {rows.size} rows: {json.dumps(runs[path])}",
+                  flush=True)
+            del decode, grown
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        decoded[True], decoded[False], strict=True)]
+    out["decode"] = {**runs, "captured_equals_eager": same,
+                     "bucket": s_b, "rows": int(rows.size)}
+    print(f"phase 22 (c) [{smi}] largest bucket ({s_b}, {rows.size} rows): "
+          f"{runs['captured']['ms_per_step']:.3f} ms a decode step "
+          f"captured ({runs['eager']['ms_per_step']:.3f} eager), "
+          f"{runs['captured']['tok_per_s']:.1f} tokens/s, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+          f"{runs['captured']['bound_share']:.3f} of it); {n_steps} tokens "
+          f"and every ckv/krope leaf captured equal to eager: {same}",
+          flush=True)
+    check(all(same), "phase 22 (c): the captured deepseek decode's tokens "
+                     "or latent cache differ from the eager decode's")
+    del decoded
+
+    # (d) expert placement from MoE layer 1's router trace
+    moe1 = params["layers"][0]["ffn"]
+    t0 = time.perf_counter()
+    trace = router_top_k(moe1, cfg, layer1_h)
+    placement = lf_expert_placement(trace, cfg.num_experts, PLACEMENT_SHARDS)
+    place_s = time.perf_counter() - t0
+    sizes = np.bincount(placement, minlength=PLACEMENT_SHARDS).tolist()
+    naive = contiguous_placement(cfg.num_experts, PLACEMENT_SHARDS)
+    costs = {"leiden_fusion": placement_cost(trace, placement),
+             "contiguous": placement_cost(trace, naive)}
+    # each layer writes its new row before it attends, so both steps see
+    # one cache (kernel_vs_plain_step)
+    grown = grow_cache(cache, s_b + n_steps)
+    with torch.no_grad():
+        want, _ = serve_step(params, cfg, first, grown, cur)
+        for lp in params["layers"]:
+            lp["ffn"] = apply_placement_to_params(lp["ffn"], placement)[0]
+        got, _ = serve_step(params, cfg, first, grown, cur)
+    err = logits_diff(got, want)
+    same_tokens = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    out["placement"] = {
+        "trace_tokens": int(trace.shape[0]), "top_k": int(trace.shape[1]),
+        "shards": PLACEMENT_SHARDS, "shard_sizes": sizes,
+        "cost": costs, "placement_s": place_s,
+        "permuted_max_abs_diff": float((got - want).abs().max()),
+        "permuted_max_over_max": err[0], "permuted_rms_over_rms": err[1],
+        "same_argmax_tokens": same_tokens, "tol": LM_BF16_TOL}
+    print(f"phase 22 (d) [{smi}] placement of {cfg.num_experts} experts on "
+          f"{PLACEMENT_SHARDS} shards from MoE layer 1's trace "
+          f"({trace.shape[0]} tokens x top-{trace.shape[1]}): "
+          f"{json.dumps(out['placement'])}", flush=True)
+    check(sizes == [cfg.num_experts // PLACEMENT_SHARDS] * PLACEMENT_SHARDS,
+          f"phase 22 (d): shard sizes {sizes}")
+    check(same_tokens and err[0] <= LM_BF16_TOL and err[1] <= LM_BF16_TOL,
+          f"phase 22 (d): the permuted model's decode step differs: "
+          f"{out['placement']}")
+    del params, cache, grown, prompt, logits, first, layer1_h, moe1, got, \
+        want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) launch.train --arch deepseek_v2_236b --reduced on the card
+    reduced = ["--workload", "lm", "--arch", DEEPSEEK_ARCH, "--reduced",
+               "--steps", "4", "--device", "cuda"]
+    rep, state = launcher.run_lm(launcher.parser().parse_args(reduced))
+    out["train_reduced"] = {"losses": rep["losses"],
+                            "compiles": state["step"].compiles}
+    print(f"phase 22 (e) [{smi}] launch.train {' '.join(reduced)}: "
+          f"{json.dumps(out['train_reduced'])}", flush=True)
+    check(all(np.isfinite(rep["losses"])) and state["step"].compiles == 1
+          and rep["losses"][-1] < rep["losses"][0],
+          f"phase 22 (e): reduced deepseek training: {out['train_reduced']}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one decode step, bf16 against f32 weights, at full width on 2
+    # layers (the dense layer 0 and one MoE layer); then MLA's absorbed
+    # decode against the expanded form, f32, over each layer's cache
+    two = dataclasses.replace(cfg, num_layers=2)
+    c32 = dataclasses.replace(two, dtype="float32")
+    prompt = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    routes = []
+    with torch.no_grad():
+        p32 = init_model(c32, dev, seed=args.seed)
+        logits, cache32, _ = prefill_step(p32, c32, {"tokens": prompt})
+        cache32 = grow_cache(cache32, s_b + n_steps)
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        with moe_routing(routes):
+            want, _ = serve_step(p32, c32, nxt, cache32, cur)
+        p16 = init_model(two, dev, seed=args.seed)
+        _, cache16, _ = prefill_step(p16, two, {"tokens": prompt})
+        cache16 = grow_cache(cache16, s_b + n_steps)
+        with moe_routing(replay=routes):
+            got, _ = serve_step(p16, two, nxt, cache16, cur)
+        free, _ = serve_step(p16, two, nxt, cache16, cur)
+        del p16, cache16
+    err, own = logits_diff(got, want), logits_diff(free, want)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mla = {}
+    with torch.no_grad():
+        entries = (("first_dense 0", p32["first_dense"][0],
+                    cache32["first_dense"][0]),
+                   ("layer 1 (MoE)", p32["layers"][0],
+                    {n: t[0] for n, t in cache32["layers"].items()}))
+        for name, lp, entry in entries:
+            x = torch.randn((rows.size, 1, c32.d_model), generator=gen,
+                            device=dev)
+            ckv, krope = entry["ckv"].clone(), entry["krope"].clone()
+            absorbed, ckv, krope = mla_decode(lp["attn"], c32, x, ckv, krope,
+                                              cur)
+            expanded_out = mla_expanded_decode(lp["attn"], c32, x, ckv,
+                                               krope, cur)
+            mla[name] = float((absorbed - expanded_out).abs().max()
+                              / expanded_out.abs().max())
+    out["bf16_vs_f32"] = {
+        "layers": 2, "max_over_max": err[0], "rms_over_rms": err[1],
+        "own_routing_max_over_max": own[0],
+        "own_routing_rms_over_rms": own[1],
+        "greedy_agree": float((got.argmax(-1) == want.argmax(-1))
+                              .float().mean()),
+        "tol": LM_BF16_TOL, "absorbed_vs_expanded_f32": mla,
+        "absorbed_tol": MLA_RTOL}
+    print(f"phase 22 (b) [{smi}] one decode step (bucket {s_b}, "
+          f"{rows.size} rows, full width, 2 layers), bf16 weights on the f32 "
+          f"step's expert choices against f32: "
+          f"{json.dumps(out['bf16_vs_f32'])}", flush=True)
+    check(err[0] <= LM_BF16_TOL and err[1] <= LM_BF16_TOL,
+          f"phase 22 (b): the bf16 step differs from the f32 step: "
+          f"{out['bf16_vs_f32']}")
+    check(all(v <= MLA_RTOL for v in mla.values()),
+          f"phase 22 (b): absorbed MLA decode differs from the expanded "
+          f"form: {mla}")
+    del p32, cache32, prompt, got, want, free
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 22: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -4506,6 +4934,14 @@ def main():
             k["shapes"]["zamba2_serving_d64_g1"] = ssm["kernel_d"]
             k["launches_phase21_zamba2"] = ssm["kernel_d"][
                 "launches_zamba2_serve"]
+
+    # -- 22. deepseek-v2 and expert placement -----------------------------
+    torch.cuda.empty_cache()
+    deepseek = deepseek_family(dev, smi)
+    for k in kernels:
+        if k["name"] == "flash_decode":
+            k["launches_phase22_deepseek"] = deepseek["serve"][
+                "kernel_d_launches"]
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
@@ -4533,7 +4969,8 @@ def main():
         "phase19_full": {k: v for k, v in training["full"].items()
                          if k != "losses"},
         "phase20": {k: v for k, v in moe.items() if k != "kernel_d"},
-        "phase21": {k: v for k, v in ssm.items() if k != "kernel_d"}}))
+        "phase21": {k: v for k, v in ssm.items() if k != "kernel_d"},
+        "phase22": deepseek}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

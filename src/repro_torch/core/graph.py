@@ -94,6 +94,9 @@ class Graph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v]:self.indptr[v + 1]]
 
+    def neighbor_weights(self, v: int) -> np.ndarray:
+        return self.edge_weight[self.indptr[v]:self.indptr[v + 1]]
+
     def degrees(self) -> np.ndarray:
         """Weighted degree per node (a self-loop of weight w counts 2w)."""
         out = 2.0 * self.self_weight.copy() if self.self_weight.shape[0] \

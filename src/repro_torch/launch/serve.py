@@ -10,9 +10,9 @@ The decode step (:func:`repro_torch.launch.steps.make_decode_step`, then
 the argmax and the length's increment) is a
 :class:`repro_torch.graphs.CapturedStep` of its own for each bucket, all
 in one graph pool: one CUDA graph per bucket on the card, the bucket's
-grown cache bound by address (written in place by the graph: K/V rows
-and, for the SSM and hybrid families, every block's recurrent state), the
-token and lengths donated. A step of its own, because a cache is bound by
+grown cache bound by address (written in place by the graph: K/V rows,
+MLA's ckv/krope rows, and, for the SSM and hybrid families, every block's
+recurrent state), the token and lengths donated. A step of its own, because a cache is bound by
 address: two buckets of an SSM (whose states have no sequence axis) may
 give the decode the same shapes, and so one signature, with two caches.
 ``decode_compiles`` counts the graphs, one per bucket, which is the
@@ -38,7 +38,8 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device, synchronize
 from ..graphs import CapturedStep, new_pool
-from ..models.lm import grow_cache, init_model
+from ..models.config import ModelConfig
+from ..models.lm import SEQ_LEAVES, grow_cache, init_model
 from .steps import make_decode_step, make_prefill_step
 
 MIN_PREFILL_BUCKET = 8
@@ -69,9 +70,9 @@ def make_decode(params: Dict, cfg, device: torch.device,
         return decode
 
     def warmup(tokens, lengths, cache):
-        # a K/V row written twice holds the same values, but a recurrent
-        # state would advance twice (warm-up, then the first replay): the
-        # warm-up steps copies of the states
+        # a K/V (or ckv/krope) row written twice holds the same values, but
+        # a recurrent state would advance twice (warm-up, then the first
+        # replay): the warm-up steps copies of the states
         decode(tokens, lengths, _state_copies(cache))
     return CapturedStep(decode, device, pool=pool, donate=(0, 1),
                         borrow=(2,), name="decode", warmup=warmup)
@@ -79,25 +80,31 @@ def make_decode(params: Dict, cfg, device: torch.device,
 
 def _state_copies(cache: Dict) -> Dict:
     """``cache`` with every recurrent state (a per-layer cache's leaves
-    other than ``k``/``v``) copied; K/V and a stacked cache are shared."""
+    other than ``k``/``v``/``ckv``/``krope``) copied. K/V, MLA's latent
+    ``ckv``/``krope`` and a stacked cache (its ``first_dense`` entries
+    too) are shared: a row the warm-up writes, the first replay writes
+    again with the same values."""
     if not isinstance(cache["layers"], list):
         return cache
     return {**cache, "layers": [
-        {n: t if n in ("k", "v") else t.clone() for n, t in c.items()}
+        {n: t if n in SEQ_LEAVES else t.clone() for n, t in c.items()}
         for c in cache["layers"]]}
 
 
 def serve(args: argparse.Namespace, params: Optional[Dict] = None,
-          capture: bool = True) -> dict:
+          capture: bool = True, cfg: Optional[ModelConfig] = None) -> dict:
     """Serve ``args.requests`` synthetic requests; returns the report.
 
     ``params`` replaces the seeded weights (the tests pass the reference's,
     through :func:`repro_torch.models.convert.params_from_reference`);
-    ``capture=False`` decodes eagerly."""
+    ``capture=False`` decodes eagerly; ``cfg`` replaces the config that
+    ``args.arch`` and ``args.reduced`` name (a depth-cut full-width
+    config, say)."""
     device = resolve_device(getattr(args, "device", "cuda"))
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     rng = np.random.default_rng(args.seed)
     if params is None:
         params = init_model(cfg, device, seed=args.seed)

@@ -1,11 +1,20 @@
-"""Attention: GQA (+qk_norm, qkv bias, partial RoPE, sliding window); the
-prefill path (query-chunked, causal) and the decode path (KV cache).
+"""Attention: GQA (+qk_norm, qkv bias, partial RoPE, sliding window) and
+MLA (deepseek-v2's multi-head latent attention); the prefill path
+(query-chunked, causal) and the decode path (KV cache).
 
 Prefill attention is **query-chunked**: a loop over query blocks keeps the
-logits buffer at ``[B, Hkv, G, Cq, S]`` instead of ``[B, H, S, S]``. Decode
-attention goes through :func:`repro_torch.kernels.ops.flash_decode`: kernel
-D on the card, its plain version on the CPU. MLA and cross-attention are
-not ported yet.
+logits buffer at ``[B, Hkv, G, Cq, S]`` instead of ``[B, H, S, S]``. GQA
+decode attention goes through :func:`repro_torch.kernels.ops.flash_decode`:
+kernel D on the card, its plain version on the CPU.
+
+MLA caches a latent ``ckv [B, S, kv_lora_rank]`` and one shared RoPE key
+``krope [B, S, qk_rope_head_dim]`` a token instead of per-head K/V. Its
+prefill (:func:`mla_train`) expands them to per-head K/V and runs the
+chunked attention; its decode (:func:`mla_decode`) is the reference's
+**absorbed** form: ``W_uk`` folds into the query, attention runs over the
+latent cache in f32, and ``W_uv`` applies to the result. Like the
+reference's, it is plain products (``einsum``) and launches no kernel of
+its own. Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -131,3 +140,109 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                        cache_v, filled)
     out = out.reshape(b, 1, h * dh).to(x.dtype)
     return out @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v2)
+# ---------------------------------------------------------------------------
+def init_mla(cfg: ModelConfig, device: torch.device,
+             gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The query path ``x -> q_lora -> per-head (nope + rope)`` and the KV
+    path ``x -> (ckv, shared k_rope)``, ``ckv -> per-head K_nope / V``,
+    with the reference's shapes and scales."""
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dt = torch_dtype(cfg)
+    s = (1.0 / d) ** 0.5
+    return {"w_dq": normal((d, qr), s, dt, device, gen),
+            "w_uq": normal((qr, h * (dn + dr)), (1.0 / qr) ** 0.5, dt,
+                           device, gen),
+            "w_dkv": normal((d, kvr + dr), s, dt, device, gen),
+            "w_uk": normal((kvr, h * dn), (1.0 / kvr) ** 0.5, dt, device,
+                           gen),
+            "w_uv": normal((kvr, h * dv), (1.0 / kvr) ** 0.5, dt, device,
+                           gen),
+            "wo": normal((h * dv, d), (1.0 / (h * dv)) ** 0.5, dt, device,
+                         gen)}
+
+
+def _mla_qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """``x [B, S, d]`` -> ``(q_nope [B, S, H, Dn], q_rope [B, S, H, Dr],
+    ckv [B, S, kvr], k_rope [B, S, Dr])``; RoPE on the rope slices only."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, cfg.num_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg)
+    ckv_full = x @ p["w_dkv"]                            # [B, S, kvr + dr]
+    c_kv = ckv_full[..., :cfg.kv_lora_rank]
+    k_rope = apply_rope(ckv_full[..., cfg.kv_lora_rank:][:, :, None, :],
+                        positions, cfg)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_train(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, return_kv: bool = False):
+    """Full-sequence causal MLA in the expanded form: per-head
+    ``K = [ckv W_uk, k_rope]`` and ``V = ckv W_uv`` through
+    :func:`_attend_chunked`. With ``return_kv``, ``(out, ckv, k_rope)``:
+    the latent cache prefill hands to decode."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    out = _attend_chunked(q, k, v, causal=True, window=None)
+    out = out.reshape(b, s, h * dv) @ p["wo"]
+    if return_kv:
+        return out, c_kv, k_rope
+    return out
+
+
+def mla_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+               x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_krope: torch.Tensor, length: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token absorbed MLA decode. x: ``[B, 1, d]``; cache_ckv:
+    ``[B, S, kvr]``; cache_krope: ``[B, S, Dr]``; length: ``[B]`` int32
+    (the fill before this token).
+
+    ``out = softmax(q_nope W_uk^T ckv + q_rope k_rope) (ckv W_uv) W_o``,
+    in f32 over the latent cache. This token's ``ckv``/``krope`` rows are
+    written into the caches IN PLACE at ``length``, as
+    :func:`attention_decode` writes K/V; nothing reads the device from the
+    host, so the step records into a CUDA graph. Returns ``(out [B, 1,
+    d], cache_ckv, cache_krope)``."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    s_cache = cache_ckv.shape[1]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, length[:, None])
+    rows = torch.arange(b, device=x.device)
+    slot = length.long()
+    cache_ckv[rows, slot] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[rows, slot] = k_rope[:, 0].to(cache_krope.dtype)
+    ckv = cache_ckv.float()
+    w_uk = p["w_uk"].reshape(kvr, h, dn).float()
+    q_abs = torch.einsum("bhd,khd->bhk", q_nope[:, 0].float(), w_uk)
+    logits = torch.einsum("bhk,bsk->bhs", q_abs, ckv)
+    logits = logits + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                                   cache_krope.float())
+    logits = logits * (dn + dr) ** -0.5
+    valid = torch.arange(s_cache, device=x.device)[None, :] <= length[:, None]
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.full((), -1e30, device=x.device))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhs,bsk->bhk", probs, ckv)
+    w_uv = p["w_uv"].reshape(kvr, h, dv).float()
+    out = torch.einsum("bhk,khd->bhd", ctx, w_uv)
+    out = out.reshape(b, 1, h * dv).to(x.dtype)
+    return out @ p["wo"], cache_ckv, cache_krope

@@ -6,7 +6,11 @@ The tests run both packages on the same weights: the reference's
 (``layers`` leaves carry a leading L axis); the port keeps one dict per
 layer, each leaf a view of one stacked tensor. An MoE layer's ``shared``
 experts are a list in both layouts (in the reference's, a list of dicts
-whose leaves are stacked over the layers). :func:`params_to_reference`
+whose leaves are stacked over the layers). The leading dense layers of an
+MoE stack (deepseek-v2's ``first_dense``) are a list of per-layer dicts
+in both, params and cache, and carry over as they are; MLA's leaves
+(``w_dq`` ... ``wo``; the cache's ``ckv``/``krope``) stack like any
+other. :func:`params_to_reference`
 goes back: the port's params as the reference's numpy tree, which the
 tests compare with the reference's and the LM checkpoint stores.
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .lm import check_supported, per_layer
+from .lm import check_supported, first_dense, per_layer
 
 
 def tensor_from_numpy(x: Any, device: torch.device) -> torch.Tensor:
@@ -65,17 +69,20 @@ def params_from_reference(tree: Dict, cfg: ModelConfig,
         return _tree(tree, device)
     params = _tree({k: v for k, v in tree.items() if k != "layers"}, device)
     stacked = _tree(tree["layers"], device)
-    params["layers"] = [_unstack(stacked, i) for i in range(cfg.num_layers)]
+    params["layers"] = [_unstack(stacked, i)
+                        for i in range(cfg.num_layers - first_dense(cfg))]
     return params
 
 
 def cache_from_reference(tree: Dict, device: torch.device) -> Dict:
-    """The reference's decode cache (numpy leaves: ``layers`` k/v stacked
-    ``[L, B, S, Hkv, Dh]``, or a per-layer list of K/V and block states)
-    as the port's, which has the same layout."""
+    """The reference's decode cache (numpy leaves: ``layers`` k/v (MLA:
+    ckv/krope) stacked ``[L, B, S, ...]`` beside the leading dense
+    layers' ``first_dense`` list, or a per-layer list of K/V and block
+    states) as the port's, which has the same layout."""
     if isinstance(tree["layers"], (list, tuple)):
         return {"layers": _tree(tree["layers"], device)}
-    return {"first_dense": [], "layers": _tree(tree["layers"], device)}
+    return {"first_dense": _tree(tree["first_dense"], device),
+            "layers": _tree(tree["layers"], device)}
 
 
 def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:

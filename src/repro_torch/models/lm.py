@@ -7,20 +7,33 @@ scan-stacked leaves)::
 
     params = {
       "embed":      [V, d] token embedding
+      "first_dense": [{"ln1", "attn", "ln2", "ffn"}, ...]  (deepseek-v2)
       "layers":     [{"ln1", "attn", "ln2", "ffn"}, ...]   one dict a layer
       "shared_attn": {"ln1", "attn", "ln2", "ffn"}          (zamba2)
       "final_norm", "head" ([d, V], absent when tied)
     }
+    attn = {"wq", "wk", "wv", "wo", ...}                   GQA
+    attn = {"w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "wo"} MLA
     ffn = {"w_gate", "w_up", "w_out"}                      a dense layer's
     ffn = {"router", "w_gate", "w_up", "w_out", "shared": [ffn, ...]}
                                                            an MoE layer's
 
+An MoE stack with ``first_k_dense`` leading dense layers (deepseek-v2)
+keeps them apart, as the reference does: ``first_dense`` holds those
+layers and ``layers`` the ``num_layers - first_k_dense`` MoE layers after
+them.
+
 A homogeneous attention stack (no block pattern, ``scan_layers``) keeps
-the reference's stacked cache, so layer ``i`` attends over the contiguous
-view ``cache["layers"]["k"][i]``::
+the reference's stacked cache, so layer ``i`` of ``layers`` attends over
+the contiguous view ``cache["layers"]["k"][i]``; the leading dense
+layers' entries are a list. An MLA model caches its latent ``ckv`` and
+shared ``krope`` in place of K/V::
 
     cache = {"first_dense": [], "layers": {"k": [L, B, S, Hkv, Dh],
                                            "v": [L, B, S, Hkv, Dh]}}
+    cache = {"first_dense": [{"ckv": [B, S, kvr], "krope": [B, S, Dr]},
+                             ...],
+             "layers": {"ckv": [L', B, S, kvr], "krope": [L', B, S, Dr]}}
 
 A block pattern (``cfg.blocks``: ``mlstm``, ``slstm``, ``mamba``,
 ``attn``, ``shared_attn``) takes the reference's per-layer layout: each
@@ -34,7 +47,8 @@ its applications)::
                         | mlstm {"S", "n"} | slstm {"h", "c", "n", "m"},
                         ...]}
 
-``serve_step`` writes each new K/V row into the cache in place, and
+``serve_step`` writes each new K/V (or ckv/krope) row into the cache in
+place, and
 copies each block's new state into the cache's own tensors, so a decode
 captured with the cache bound by address reads and writes the live state.
 
@@ -46,12 +60,12 @@ so no more than one chunk's logits ever exists.
 
 The port runs the homogeneous attention stack (dense and GQA families:
 qwen3, qwen1.5, glm4, nemotron), its mixture-of-experts variant, every
-layer's FFN a :mod:`repro_torch.models.moe` layer (qwen2-moe): its
-router's aux loss adds into the training loss, prefill drops it, decode
-runs :func:`moe_decode`; and the block patterns of the SSM (xlstm) and
-hybrid (zamba2) families. MLA, leading dense layers before the experts
-(deepseek's ``first_k_dense``), encoders and modality frontends raise
-``NotImplementedError``.
+layer's FFN after the leading dense ones a :mod:`repro_torch.models.moe`
+layer (qwen2-moe, deepseek-v2): its router's aux loss adds into the
+training loss, prefill drops it, decode runs :func:`moe_decode`; MLA
+attention (deepseek-v2: prefill expanded, decode absorbed); and the block
+patterns of the SSM (xlstm) and hybrid (zamba2) families. Encoders and
+modality frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,7 +78,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
-from .attention import attention_decode, attention_train, init_attention
+from .attention import (attention_decode, attention_train, init_attention,
+                        init_mla, mla_decode, mla_train)
 from .config import ModelConfig
 from .layers import (apply_norm, ffn_forward, init_ffn, init_norm, normal,
                      torch_dtype)
@@ -83,16 +98,13 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this slice does not run."""
     missing = [what for what, on in (
-        ("MLA attention", cfg.mla),
-        ("leading dense layers before the experts",
-         cfg.num_experts > 0 and cfg.first_k_dense > 0),
         ("an encoder", cfg.encoder_layers > 0),
         (f"the {cfg.frontend} frontend", cfg.frontend != "none")) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are not ported yet; the "
-            f"port's LM runs dense and MoE attention stacks and the SSM and "
-            f"hybrid block patterns (MLA, enc-dec and VLM families are a "
+            f"port's LM runs dense, MoE and MLA attention stacks and the SSM "
+            f"and hybrid block patterns (enc-dec and VLM families are a "
             f"later slice of the port)")
 
 
@@ -102,6 +114,15 @@ def per_layer(cfg: ModelConfig) -> bool:
     return bool(cfg.block_pattern) or not cfg.scan_layers
 
 
+def first_dense(cfg: ModelConfig) -> int:
+    """How many leading dense layers a homogeneous MoE stack keeps apart
+    in ``params["first_dense"]`` (0 for every other layout, where
+    ``cfg.is_moe_layer`` tells each layer's FFN)."""
+    if cfg.num_experts == 0 or per_layer(cfg):
+        return 0
+    return cfg.first_k_dense
+
+
 def _layer(params: Params, i: int, kind: str
            ) -> Tuple[Dict, str]:
     """Layer ``i``'s weights and the kind they run as: the shared block's
@@ -109,6 +130,18 @@ def _layer(params: Params, i: int, kind: str
     if kind == "shared_attn":
         return params["shared_attn"], "attn"
     return params["layers"][i], kind
+
+
+def _layers(params: Params, cfg: ModelConfig
+            ) -> List[Tuple[Dict, str, bool]]:
+    """Every layer in order as ``(weights, kind, moe)``: a homogeneous
+    stack's leading dense layers, then ``params["layers"]``."""
+    if per_layer(cfg):
+        return [(*_layer(params, i, kind), cfg.is_moe_layer(i))
+                for i, kind in enumerate(cfg.blocks)]
+    moe = cfg.num_experts > 0
+    return ([(lp, "attn", False) for lp in params.get("first_dense", [])]
+            + [(lp, "attn", moe) for lp in params["layers"]])
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +155,8 @@ def _init_layer(cfg: ModelConfig, device: torch.device,
     if kind != "attn":
         raise ValueError(kind)
     return {"ln1": init_norm(cfg, device),
-            "attn": init_attention(cfg, device, gen),
+            "attn": (init_mla(cfg, device, gen) if cfg.mla
+                     else init_attention(cfg, device, gen)),
             "ln2": init_norm(cfg, device),
             "ffn": (init_moe(cfg, device, gen) if moe
                     else init_ffn(cfg, device, gen))}
@@ -136,6 +170,7 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg)
+    n_fd = first_dense(cfg)
     params: Params = {
         "embed": normal((cfg.vocab_size, cfg.d_model), 0.02, dt, device,
                         gen),
@@ -143,8 +178,12 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
         # {} at a shared_attn position: its weights are params["shared_attn"]
         "layers": [{} if kind == "shared_attn" else
                    _init_layer(cfg, device, gen, kind, cfg.is_moe_layer(i))
-                   for i, kind in enumerate(cfg.blocks)],
+                   for i, kind in enumerate(cfg.blocks) if i >= n_fd],
     }
+    if n_fd:
+        params["first_dense"] = [_init_layer(cfg, device, gen, "attn",
+                                             moe=False)
+                                 for _ in range(n_fd)]
     if "shared_attn" in cfg.blocks:
         params["shared_attn"] = _init_layer(cfg, device, gen, "attn",
                                             moe=False)
@@ -195,8 +234,8 @@ def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
         out, _ = BLOCKS[kind].forward(p[kind], cfg, apply_norm(p["ln1"], x))
         return x + out, torch.zeros((), dtype=torch.float32,
                                     device=x.device)
-    x = x + attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
-                            positions)
+    attend = mla_train if cfg.mla else attention_train
+    x = x + attend(p["attn"], cfg, apply_norm(p["ln1"], x), positions)
     h = apply_norm(p["ln2"], x)
     if moe:
         out, aux = moe_forward(p["ffn"], cfg, h)
@@ -215,10 +254,9 @@ def model_hidden_train(params: Params, cfg: ModelConfig,
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i, kind in enumerate(cfg.blocks):
-        lp, kind = _layer(params, i, kind)
+    for lp, kind, moe in _layers(params, cfg):
         f = _remat(functools.partial(_apply_layer_train, lp, cfg, kind,
-                                     cfg.is_moe_layer(i)), cfg)
+                                     moe), cfg)
         x, a = f(x, positions)
         aux_total = aux_total + a
     return apply_norm(params["final_norm"], x), aux_total
@@ -286,22 +324,30 @@ def _apply_layer_prefill(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
                          x: torch.Tensor, positions: torch.Tensor
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One layer over the whole prompt; returns ``(x, cache entry)``: an
-    attention layer's ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` (an MoE layer's
-    aux loss is dropped, as in the reference), or a block's final state
-    (mamba's with its conv tail)."""
+    attention layer's ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` or, for MLA,
+    ``{"ckv" [B, S, kvr], "krope" [B, S, Dr]}`` (an MoE layer's aux loss
+    is dropped, as in the reference), or a block's final state (mamba's
+    with its conv tail)."""
     if kind in BLOCKS:
         fwd = BLOCKS[kind].forward
         h = apply_norm(p["ln1"], x)
         out, c = (fwd(p[kind], cfg, h, return_state=True) if kind == "mamba"
                   else fwd(p[kind], cfg, h))
         return x + out, c
-    out, k, v = attention_train(p["attn"], cfg, apply_norm(p["ln1"], x),
-                                positions, return_kv=True)
+    h = apply_norm(p["ln1"], x)
+    if cfg.mla:
+        out, ckv, krope = mla_train(p["attn"], cfg, h, positions,
+                                    return_kv=True)
+        entry = {"ckv": ckv, "krope": krope}
+    else:
+        out, k, v = attention_train(p["attn"], cfg, h, positions,
+                                    return_kv=True)
+        entry = {"k": k, "v": v}
     x = x + out
     h = apply_norm(p["ln2"], x)
     x = x + (moe_forward(p["ffn"], cfg, h)[0] if moe
              else ffn_forward(p["ffn"], cfg, h))
-    return x, {"k": k, "v": v}
+    return x, entry
 
 
 def prefill_step(params: Params, cfg: ModelConfig,
@@ -316,19 +362,19 @@ def prefill_step(params: Params, cfg: ModelConfig,
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device)[None, :]
     entries: List[Dict[str, torch.Tensor]] = []
-    for i, kind in enumerate(cfg.blocks):
-        lp, kind = _layer(params, i, kind)
-        x, c = _apply_layer_prefill(lp, cfg, kind, cfg.is_moe_layer(i), x,
-                                    positions)
+    for lp, kind, moe in _layers(params, cfg):
+        x, c = _apply_layer_prefill(lp, cfg, kind, moe, x, positions)
         entries.append(c)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, -1] @ _head_weight(params)).float()
     if per_layer(cfg):
         cache: Cache = {"layers": entries}
     else:
-        cache = {"first_dense": [],
-                 "layers": {n: torch.stack([c[n] for c in entries])
-                            for n in ("k", "v")}}
+        n_fd = first_dense(cfg)
+        stack = entries[n_fd:]
+        cache = {"first_dense": entries[:n_fd],
+                 "layers": {n: torch.stack([c[n] for c in stack])
+                            for n in stack[0]}}
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return logits, cache, lengths
 
@@ -346,16 +392,29 @@ def _grow(t: torch.Tensor, axis: int, target_len: int) -> torch.Tensor:
     return grown
 
 
+SEQ_LEAVES = ("k", "v", "ckv", "krope")
+
+
+def _grow_entries(entries: List[Dict[str, torch.Tensor]], target_len: int
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer cache entries with their sequence axis (1) grown; a
+    recurrent state keeps its shape and is copied."""
+    return [{n: (_grow(t, 1, target_len) if n in SEQ_LEAVES else t.clone())
+             for n, t in c.items()} for c in entries]
+
+
 def grow_cache(cache: Cache, target_len: int) -> Cache:
-    """The cache with its K/V sequence axis grown to ``target_len``. A
-    per-layer cache's recurrent states keep their shapes and are copied,
-    so the grown cache owns every tensor that decode writes in place."""
+    """The cache with its K/V (or ckv/krope) sequence axis grown to
+    ``target_len``, the leading dense layers' entries too. A per-layer
+    cache's recurrent states keep their shapes and are copied, so the
+    grown cache owns every tensor that decode writes in place."""
     out = dict(cache)
     if isinstance(cache["layers"], list):
-        out["layers"] = [{n: (_grow(t, 1, target_len) if n in ("k", "v")
-                              else t.clone()) for n, t in c.items()}
-                         for c in cache["layers"]]
+        out["layers"] = _grow_entries(cache["layers"], target_len)
     else:
+        if "first_dense" in cache:
+            out["first_dense"] = _grow_entries(cache["first_dense"],
+                                               target_len)
         out["layers"] = {n: _grow(t, 2, target_len)
                          for n, t in cache["layers"].items()}
     return out
@@ -364,35 +423,57 @@ def grow_cache(cache: Cache, target_len: int) -> Cache:
 # ---------------------------------------------------------------------------
 # serving: cache init + single-token decode
 # ---------------------------------------------------------------------------
+def _attn_cache(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
+                seq_len: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """One attention cache entry of zeros, ``lead`` axes first: K/V
+    ``[B, S, Hkv, Dh]`` (a sliding config's only ``cfg.window`` long) or
+    MLA's ``ckv [B, S, kvr]`` and ``krope [B, S, Dr]``."""
+    dt = torch_dtype(cfg)
+    if cfg.mla:
+        widths = {"ckv": (cfg.kv_lora_rank,),
+                  "krope": (cfg.qk_rope_head_dim,)}
+    else:
+        widths = {"k": (cfg.num_kv_heads, cfg.head_dim),
+                  "v": (cfg.num_kv_heads, cfg.head_dim)}
+        if cfg.attention == "sliding":
+            seq_len = min(seq_len, cfg.window)
+    return {n: torch.zeros(lead + (batch, seq_len) + w, dtype=dt,
+                           device=device) for n, w in widths.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = "cuda") -> Cache:
-    """Zero cache: K/V ``[L, B, S, Hkv, Dh]`` for a homogeneous stack, a
-    sliding-window config's only ``cfg.window`` long (a ring buffer); per
-    layer for a block pattern, each block's zero state."""
+    """Zero cache: K/V ``[L, B, S, Hkv, Dh]`` (MLA: ckv/krope ``[L, B,
+    S, R]``) for a homogeneous stack, a sliding-window config's only
+    ``cfg.window`` long (a ring buffer), with a list entry for each
+    leading dense layer; per layer for a block pattern, each block's zero
+    state."""
     check_supported(cfg)
     device = resolve_device(device)
-    s_att = min(seq_len, cfg.window) if cfg.attention == "sliding" \
-        else seq_len
-    dt = torch_dtype(cfg)
     if not per_layer(cfg):
-        shape = (cfg.num_layers, batch, s_att, cfg.num_kv_heads,
-                 cfg.head_dim)
-        return {"first_dense": [],
-                "layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                           "v": torch.zeros(shape, dtype=dt, device=device)}}
-    shape = (batch, s_att, cfg.num_kv_heads, cfg.head_dim)
+        n_fd = first_dense(cfg)
+        return {"first_dense": [_attn_cache(cfg, (), batch, seq_len, device)
+                                for _ in range(n_fd)],
+                "layers": _attn_cache(cfg, (cfg.num_layers - n_fd,), batch,
+                                      seq_len, device)}
     return {"layers": [
         BLOCKS[kind].zero_state(cfg, batch, device) if kind in BLOCKS else
-        {"k": torch.zeros(shape, dtype=dt, device=device),
-         "v": torch.zeros(shape, dtype=dt, device=device)}
+        _attn_cache(cfg, (), batch, seq_len, device)
         for kind in cfg.blocks]}
 
 
 def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
-                       cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       c: Dict[str, torch.Tensor],
                        length: torch.Tensor) -> torch.Tensor:
-    out, _, _ = attention_decode(lp["attn"], cfg, apply_norm(lp["ln1"], x),
-                                 cache_k, cache_v, length)
+    """One attention layer's decode step over its cache entry ``c``
+    (``{"k", "v"}``, or MLA's ``{"ckv", "krope"}``), written in place."""
+    h = apply_norm(lp["ln1"], x)
+    if cfg.mla:
+        out, _, _ = mla_decode(lp["attn"], cfg, h, c["ckv"], c["krope"],
+                               length)
+    else:
+        out, _, _ = attention_decode(lp["attn"], cfg, h, c["k"], c["v"],
+                                     length)
     x = x + out
     h = apply_norm(lp["ln2"], x)
     if "router" in lp["ffn"]:
@@ -428,11 +509,16 @@ def serve_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             if kind in BLOCKS:
                 x = _decode_block(lp, cfg, kind, x, c)
             else:
-                x = _decode_attn_layer(lp, cfg, x, c["k"], c["v"], lengths)
+                x = _decode_attn_layer(lp, cfg, x, c, lengths)
     else:
-        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        for lp, c in zip(params.get("first_dense", []),
+                         cache["first_dense"], strict=True):
+            x = _decode_attn_layer(lp, cfg, x, c, lengths)
+        stacked = cache["layers"]
         for i, lp in enumerate(params["layers"]):
-            x = _decode_attn_layer(lp, cfg, x, ck[i], cv[i], lengths)
+            x = _decode_attn_layer(lp, cfg, x,
+                                   {n: t[i] for n, t in stacked.items()},
+                                   lengths)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, 0] @ _head_weight(params)).float()
     return logits, cache

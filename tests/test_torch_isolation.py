@@ -12,8 +12,9 @@
   (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``),
   the training CLI (``python -m repro_torch.launch.train``, both
   workloads, which loads neither ``jax`` nor ``repro`` either), the LM's
-  train step and ``examples/long_context_serving_torch.py`` (which loads
-  neither either); ``chip_smoke.py`` exits
+  train step, ``examples/long_context_serving_torch.py`` and
+  ``examples/moe_expert_placement_torch.py`` (which load neither either);
+  ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
   repository is absent.
 """
@@ -83,6 +84,8 @@ print(json.dumps({{"imported": len(mods), "bad": bad, "mods": mods}}))
             "repro_torch.configs.qwen2_moe_a2p7b"} <= set(got["mods"])
     assert {"repro_torch.models.ssm", "repro_torch.configs.xlstm_125m",
             "repro_torch.configs.zamba2_1p2b"} <= set(got["mods"])
+    assert {"repro_torch.core.expert_placement",
+            "repro_torch.configs.deepseek_v2_236b"} <= set(got["mods"])
     assert {"repro_torch.core.registry", "repro_torch.core.partitioners",
             "repro_torch.core.spec", "repro_torch.core.metrics",
             "repro_torch.pipeline.artifacts",
@@ -329,6 +332,46 @@ def test_long_context_example_needs_a_gpu_unless_told_cpu(device):
                for r in rows)
     assert [r.split("cache=")[1].split("MB")[0].strip() for r in rows] == [
         "0.1", "0.1", "2.2"]
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_placement_example_needs_a_gpu_unless_told_cpu(device):
+    """``examples/moe_expert_placement_torch.py`` raises without a GPU
+    unless given ``--device cpu``, then prints the reference example's
+    lines (LF against contiguous on the synthetic trace, the same numbers
+    as the reference's, the partner reduction, then on the real router
+    trace), and loads neither ``jax`` nor ``repro``. One intra-op thread:
+    the example trains for 25 steps (~20 s on one core), and beside other
+    test workers a process of many threads runs far slower."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    path = os.path.join(ROOT, "examples", "moe_expert_placement_torch.py")
+    argv = ["--device", device] if device else []
+    out = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_RUNNER.format(
+            src=os.path.join(ROOT, "src"), path=path, argv=argv)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["bad"] == []
+    if device is None:
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
+        return
+    assert out.returncode == 0, out.stderr
+    rows = [r for r in lines[:-1] if r]
+    assert rows[0].startswith("== synthetic") and rows[4].startswith(
+        "== REAL router trace")
+    assert [r.split(":")[0].strip() for r in rows[1:4] + rows[5:]] == [
+        "contiguous", "leiden_fusion", "all-to-all partner reduction",
+        "contiguous", "leiden_fusion"]
+    # the synthetic trace is the reference example's, draw for draw
+    assert rows[1:4] == [
+        "contiguous    : mean shards/token=2.853  single-shard "
+        "tokens=0.8%  p90=4",
+        "leiden_fusion : mean shards/token=2.238  single-shard "
+        "tokens=16.7%  p90=3",
+        "all-to-all partner reduction: 33.2% fewer cross-shard hops"]
+
 
 
 # ``python -m repro_torch.serving`` in a fresh interpreter; it prints which

@@ -212,10 +212,18 @@ def moe_bits(t):
 
 def test_unported_moe_variants_raise():
     """Leading dense layers before the experts (deepseek's
-    ``first_k_dense``) are not ported; the family itself is."""
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), first_k_dense=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.init_model(cfg, "cpu")
+    ``first_k_dense``) are laid out as the reference lays them out:
+    ``params["first_dense"]`` holds them, dense, and ``layers`` the MoE
+    layers after them; the cache keeps a list entry for each."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), first_k_dense=1,
+                              d_ff=64)
+    params = lm.init_model(cfg, "cpu")
+    assert len(params["first_dense"]) == 1
+    assert len(params["layers"]) == cfg.num_layers - 1
+    assert "router" not in params["first_dense"][0]["ffn"]
+    assert params["first_dense"][0]["ffn"]["w_up"].shape == (cfg.d_model,
+                                                             64)
+    assert len(lm.init_cache(cfg, 1, 8, "cpu")["first_dense"]) == 1
     lm.check_supported(get_config(ARCH))
     assert "router" in lm.init_model(get_config(ARCH).reduced(),
                                      "cpu")["layers"][1]["ffn"]
