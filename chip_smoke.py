@@ -7,9 +7,11 @@ autotuner, the compiled steps (CUDA graphs) and
 ``repro_torch.launch.train`` (the GNN workload and LM training, qwen3_4b
 at full width), the MoE family (qwen2_moe_a2p7b served at full width,
 trained reduced), the SSM and hybrid families (xlstm_125m and
-zamba2_1p2b served and trained at full width) and deepseek_v2_236b (MLA,
+zamba2_1p2b served and trained at full width), deepseek_v2_236b (MLA,
 a leading dense layer, 160 routed experts: served at full width and cut
-depth, its experts placed by Leiden-Fusion, trained reduced) on one
+depth, its experts placed by Leiden-Fusion, trained reduced) and the
+enc-dec and VLM families (seamless_m4t_large_v2 and phi3_vision_4p2b
+served at full width and depth, trained reduced; kernel D at D 96) on one
 NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -316,7 +318,35 @@ Phases, each fatal on failure:
    choices, against the same step with the weights in f32 at
    ``LM_BF16_TOL`` (on its own choices printed), and MLA's absorbed
    decode against the expanded form over each layer's cache in f32
-   within ``MLA_RTOL`` of the largest output.
+   within ``MLA_RTOL`` of the largest output;
+23. the enc-dec and VLM families at published width and depth, bf16,
+   seeded: (a) ``seamless_m4t_large_v2`` (24 encoder and 24 decoder
+   layers, d_model 1,024, 16 heads, d_ff 8,192, GELU with biases,
+   LayerNorm, vocab 256,206) through ``launch.serve.serve`` on phase 9's
+   requests, the stub frames drawn after each bucket's tokens: logits
+   finite, one decode graph a bucket, no prefill graph, kernel D 24
+   launches a step; peak GB; at the largest bucket kernel D against the
+   plain attention (``kernel_vs_plain_step``) and the step's bound
+   (``frontend_decode_bound``); (c) that bucket's 32 decode steps
+   captured and eager from one prefill, tokens, logits and every cache
+   leaf (``memory`` too) bitwise equal, ms a step, the captured step's
+   profile by kernel (cuBLAS, kernel D, the rest) and the eager step's
+   device time with the cross-attention's kernels apart (a profiler range
+   around each call, ``eager_cross_split``); the same for
+   ``phi3_vision_4p2b`` (32 layers, d_model 3,072, 32 = 32 heads of D 96,
+   SwiGLU d_ff 8,192, 576 patch tokens) on 4 requests of 577-1,024
+   tokens, all in the 1,024 bucket (a shorter bucket fails in the
+   reference), kernel D 32 launches a step; (b) a 128-token
+   phi-3-vision prompt raises ``ValueError`` (``num_patch_tokens``); (d)
+   kernel D alone at phi-3-vision's decode shape (D 96, bf16), at D 96
+   in f32 (B 16, S 32,768, decode_32k's heads) and at seamless's decode
+   shape (D 64, G 1), each against its plain version, bitwise
+   repeatable, timed beside its bound and
+   ``scaled_dot_product_attention``; (e) both families ``launch.train
+   --reduced``, 4 steps: one captured graph, the loss finite and falling;
+   and the reduced model (f32) on the card against the CPU (``train_loss``
+   and its gradient, prefill then a decode step against the train
+   forward) within ``FRONTEND_TOL``.
 
 The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at a file in a temporary
 directory of its own, so no user cache reaches a phase: phases 1-16
@@ -404,6 +434,16 @@ MLA_RTOL = 1e-4        # absorbed MLA decode against the expanded form, f32,
 MLA_KERNELS = (("cuBLAS products", GEMM_NAMES + ("gemv", "splitk")),
                ("gather (expert weights, embedding rows, cache rows)",
                 ("index", "gather", "scatter")))
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+VLM_ARCH = "phi3_vision_4p2b"
+FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+FRONTEND_TOL = 1e-4    # the reduced enc-dec / VLM, card against CPU, f32
+                       # (as MOE_TOL)
+# device kernels of an enc-dec / VLM decode step by name, first match wins
+FRONTEND_KERNELS = (("kernel D", ("flash_decode",)),
+                    ("cuBLAS products", GEMM_NAMES + ("gemv", "splitk")))
+# the profiler range around each cross-attention call (phase 23)
+CROSS_RANGE = "phase23.cross_attention"
 
 
 def check(ok, what):
@@ -3623,6 +3663,65 @@ def ssm_decode_bound(params, cfg, tokens, cache, lengths):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def captured_and_eager(params, cfg, dev, cache, first, cur, length, steps,
+                       bound, table, what, bucket, eager_split=None):
+    """``steps`` greedy decode steps of one bucket from ``first`` at the
+    rows' lengths ``cur``, captured (``launch.serve.make_decode``) and
+    eager, each over its own ``grow_cache(cache, length)``: ms a step
+    (host clock, after the first), tokens/s and the share of ``bound``,
+    the captured step's ``profile_by_kernel`` over ``table`` and, given
+    ``eager_split``, its reading of an eager step. Returns the runs and,
+    leaf by leaf (tokens, logits, every cache leaf), whether the two
+    paths are bitwise equal."""
+    import torch
+    from repro_torch.launch.serve import make_decode
+    from repro_torch.models.lm import grow_cache
+    from repro_torch.tree import tree_leaves
+    rows = first.shape[0]
+    decoded, runs = {}, {}
+    with torch.no_grad():
+        for capture in (True, False):
+            path = "captured" if capture else "eager"
+            decode = make_decode(params, cfg, dev, capture)
+            grown = grow_cache(cache, length)
+            tok, lens = first, cur.clone()
+            toks = torch.empty((rows, steps), dtype=torch.int32, device=dev)
+            every = torch.empty((steps, rows, cfg.vocab_size), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                tok, lens, lg = decode(tok, lens, grown)
+                toks[:, i:i + 1] = tok
+                every[i] = lg
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded[capture] = [toks.clone(), every] + [
+                t.clone() for t in tree_leaves(grown)]
+
+            def more():
+                nonlocal tok, lens
+                tok, lens, _ = decode(tok, lens, grown)
+            ms = 1e3 * (t2 - t1) / (steps - 1)
+            runs[path] = {"first_step_ms": 1e3 * (t1 - t0),
+                          "ms_per_step": ms,
+                          "tok_per_s": rows * 1e3 / ms,
+                          "bound_share": bound["bound_ms"] / ms}
+            if capture:
+                runs[path]["profile"] = profile_by_kernel(more, table,
+                                                          "the rest")
+            elif eager_split is not None:
+                runs[path]["split"] = eager_split(more)
+            print(f"{what} {path}, bucket {bucket}, {rows} rows: "
+                  f"{json.dumps(runs[path])}", flush=True)
+            del decode, grown
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        decoded[True], decoded[False], strict=True)]
+    return runs, same
+
+
 def ssm_serving(dev, smi, arch, steps=32):
     """Phase 21 (a)-(c) for one arch: ``launch.serve`` at full width, then
     at the largest bucket kernel D against the plain attention (where the
@@ -3632,7 +3731,7 @@ def ssm_serving(dev, smi, arch, steps=32):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import make_decode, prefill_bucket, serve
+    from repro_torch.launch.serve import prefill_bucket, serve
     from repro_torch.models.lm import grow_cache, init_model, prefill_step
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
@@ -3707,48 +3806,9 @@ def ssm_serving(dev, smi, arch, steps=32):
           f"first step: {json.dumps(bound)}", flush=True)
 
     # (c) the bucket's decode captured and eager, from one prefill
-    decoded, runs = {}, {}
-    with torch.no_grad():
-        for capture in (True, False):
-            path = "captured" if capture else "eager"
-            decode = make_decode(params, cfg, dev, capture)
-            grown = grow_cache(cache, target + 8)
-            tok, lens = first, cur.clone()
-            toks = torch.empty((rows.size, steps), dtype=torch.int32,
-                               device=dev)
-            every = torch.empty((steps, rows.size, cfg.vocab_size),
-                                device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(steps):
-                tok, lens, lg = decode(tok, lens, grown)
-                toks[:, i:i + 1] = tok
-                every[i] = lg
-                if i == 0:
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            decoded[capture] = [toks.clone(), every] + [
-                t.clone() for t in tree_leaves(grown)]
-
-            def more():
-                nonlocal tok, lens
-                tok, lens, _ = decode(tok, lens, grown)
-            ms = 1e3 * (t2 - t1) / (steps - 1)
-            runs[path] = {"first_step_ms": 1e3 * (t1 - t0),
-                          "ms_per_step": ms,
-                          "tok_per_s": rows.size * 1e3 / ms,
-                          "bound_share": bound["bound_ms"] / ms}
-            if capture:
-                runs[path]["profile"] = profile_by_kernel(
-                    more, SSM_KERNELS, "the rest")
-            print(f"phase 21 (c) [{smi}] {arch} decode {path}, bucket "
-                  f"{s_b}, {rows.size} rows: {json.dumps(runs[path])}",
-                  flush=True)
-            del decode, grown
-    same = [bool(torch.equal(a, b)) for a, b in zip(
-        decoded[True], decoded[False], strict=True)]
+    runs, same = captured_and_eager(
+        params, cfg, dev, cache, first, cur, target + 8, steps, bound,
+        SSM_KERNELS, f"phase 21 (c) [{smi}] {arch} decode", s_b)
     out["decode"] = {**runs, "bucket": s_b, "rows": int(rows.size),
                      "leaves_compared": len(same),
                      "captured_equals_eager": all(same)}
@@ -3771,7 +3831,7 @@ def ssm_serving(dev, smi, arch, steps=32):
           f"phase 21 (c): {arch}: the profile of the captured decode step "
           f"saw no kernel, or kernel D where it should not (or not where it "
           f"should): {prof['device_ms_per_step']}")
-    del decoded, cache, params, prompt, logits, first
+    del cache, params, prompt, logits, first
     return out, (s_b + steps, rows)
 
 
@@ -3916,6 +3976,36 @@ def ssm_ranges():
          steps.adamw_update_) = saved
 
 
+def ranged_ops(raw, ranges):
+    """The CPU ops of a raw profile (``kineto_results.events()``) placed
+    in ``ranges`` (profiler range name -> part): by correlation id, each
+    op's ``(part, backward node)`` (the range it ran inside, from its
+    ancestors, and the backward node it ran under as its forward thread
+    and sequence number), and by ``(thread, sequence number)`` the part
+    of each forward op inside a range. Each thread's ops nest by their
+    time spans."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sorted((e for e in raw if e.device_type() != cuda),
+                 key=lambda e: (e.start_thread_id(), e.start_ns(),
+                                -e.duration_ns()))
+    info, forward, stack = {}, {}, []
+    for e in ops:
+        tid, t0 = e.start_thread_id(), e.start_ns()
+        while stack and (stack[-1][0] != tid or stack[-1][1] <= t0):
+            stack.pop()
+        part, bwd = stack[-1][2] if stack else (None, None)
+        name = e.name()
+        part = ranges.get(name, part)
+        if name.startswith("autograd::engine::evaluate_function"):
+            bwd = (e.fwd_thread_id(), e.sequence_nr())
+        if part is not None and e.sequence_nr() >= 0 and bwd is None:
+            forward[(tid, e.sequence_nr())] = part
+        info[e.correlation_id()] = (part, bwd)
+        stack.append((tid, t0 + e.duration_ns(), (part, bwd)))
+    return info, forward
+
+
 def ssm_step_split(step):
     """``step()`` (one eager train step) under ``torch.profiler``; returns
     its result and its device ms by part: each kernel goes to the chunked
@@ -3936,25 +4026,7 @@ def ssm_step_split(step):
         out = step()
         torch.cuda.synchronize()
     raw = list(prof.profiler.kineto_results.events())
-    ops = sorted((e for e in raw if e.device_type() != cuda),
-                 key=lambda e: (e.start_thread_id(), e.start_ns(),
-                                -e.duration_ns()))
-    # per CPU event: (its part, the backward node it runs under as (its
-    # forward thread, sequence number)), from its ancestors
-    info, forward, stack = {}, {}, []
-    for e in ops:
-        tid, t0 = e.start_thread_id(), e.start_ns()
-        while stack and (stack[-1][0] != tid or stack[-1][1] <= t0):
-            stack.pop()
-        part, bwd = stack[-1][2] if stack else (None, None)
-        name = e.name()
-        part = SSM_RANGES.get(name, part)
-        if name.startswith("autograd::engine::evaluate_function"):
-            bwd = (e.fwd_thread_id(), e.sequence_nr())
-        if part is not None and e.sequence_nr() >= 0 and bwd is None:
-            forward[(tid, e.sequence_nr())] = part
-        info[e.correlation_id()] = (part, bwd)
-        stack.append((tid, t0 + e.duration_ns(), (part, bwd)))
+    info, forward = ranged_ops(raw, SSM_RANGES)
     split = {"cublas dense products": 0.0, "chunked scan": 0.0,
              "sLSTM loop": 0.0, "adamw": 0.0, "the rest": 0.0}
     for k in raw:
@@ -4112,12 +4184,13 @@ def ssm_families(dev, smi):
     return out
 
 
-def serve_prompts(args, vocab):
+def serve_prompts(args, cfg, dev):
     """The prompts ``launch.serve.serve`` draws for ``args``: its lengths,
-    then each bucket's tokens in bucket order, from the same numpy seed
-    (``{bucket: (request ids, tokens)}``, the lengths)."""
+    then each bucket's batch in bucket order (its tokens and the
+    frontends' inputs, ``launch.serve.bucket_batch``), from the same numpy
+    seed (``{bucket: (request ids, batch on dev)}``, the lengths)."""
     import numpy as np
-    from repro_torch.launch.serve import prefill_bucket
+    from repro_torch.launch.serve import bucket_batch, prefill_bucket
     rng = np.random.default_rng(args.seed)
     lengths = rng.integers(args.min_prompt, args.max_prompt + 1,
                            args.requests)
@@ -4125,7 +4198,7 @@ def serve_prompts(args, vocab):
     out = {}
     for s_b in sorted(set(buckets.tolist())):
         idx = np.where(buckets == s_b)[0]
-        out[s_b] = (idx, rng.integers(1, vocab, (idx.size, s_b)))
+        out[s_b] = (idx, bucket_batch(rng, cfg, idx.size, s_b, dev))
     return out, lengths
 
 
@@ -4288,11 +4361,11 @@ def deepseek_family(dev, smi):
           f"launches none, as in the reference")
 
     # the largest bucket's own prompts, rows at their own lengths
-    prompts, lengths = serve_prompts(args, cfg.vocab_size)
+    prompts, lengths = serve_prompts(args, cfg, dev)
     s_b = max(prompts)
-    idx, toks = prompts[s_b]
+    idx, batch = prompts[s_b]
     rows = lengths[idx]
-    prompt = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    prompt = batch["tokens"]
     cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
     n_steps = args.max_new
     hidden = []
@@ -4435,7 +4508,7 @@ def deepseek_family(dev, smi):
     # decode against the expanded form, f32, over each layer's cache
     two = dataclasses.replace(cfg, num_layers=2)
     c32 = dataclasses.replace(two, dtype="float32")
-    prompt = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    prompt = batch["tokens"]
     routes = []
     with torch.no_grad():
         p32 = init_model(c32, dev, seed=args.seed)
@@ -4492,6 +4565,395 @@ def deepseek_family(dev, smi):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 22: {out['phase_s']:.1f} s wall", flush=True)
+    return out
+
+
+def frontend_decode_bound(params, cfg, tokens, cache, lengths):
+    """The least time one decode step of an enc-dec or VLM model could take
+    on the card: the bytes it must read (every decoder layer's weights,
+    cross-attention's included; the head; the tokens' embedding rows; the
+    K/V cache up to each row's length with the new row; the encoder's
+    memory once) and write (the logits), over 3.35 TB/s, or its
+    operations (2 a weight element a row, the cross K/V projections over
+    every memory row, attention's two products over the filled rows and,
+    across, over the memory) at the bf16 dense rate, the larger. Returns
+    the terms."""
+    from repro_torch.models.lm import _head_weight
+    from repro_torch.tree import tree_leaves
+
+    def size(t):
+        return t.numel() * t.element_size()
+    rows = tokens.shape[0]
+    layers = params["layers"]
+    weights = sum(size(t) for lp in layers for t in tree_leaves(lp))
+    elems = sum(t.numel() for lp in layers for t in tree_leaves(lp))
+    cross_kv = sum(lp["cross"][n].numel() for lp in layers if "cross" in lp
+                   for n in ("wk", "wv"))
+    n_cross = sum("cross" in lp for lp in layers)
+    filled = int((lengths + 1).sum())
+    k = cache["layers"]["k"]
+    kv = 2 * filled * k.shape[3] * k.shape[4] * k.element_size() \
+        * k.shape[0]
+    memory = cache.get("memory")
+    se = memory.shape[1] if memory is not None else 0
+    mem = size(memory) if memory is not None else 0
+    head_w = _head_weight(params)
+    head = size(head_w) + rows * cfg.d_model * params["embed"].element_size()
+    logits = rows * cfg.vocab_size * 4
+    nbytes = weights + kv + mem + head + logits
+    hd = cfg.num_heads * cfg.head_dim
+    ops = 2 * rows * (elems - cross_kv + head_w.numel()) \
+        + 2 * rows * se * cross_kv + 4 * filled * hd * len(layers) \
+        + 4 * rows * se * hd * n_cross
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return {"bytes_gb": nbytes / 1e9, "weights_gb": weights / 1e9,
+            "kv_gb": kv / 1e9, "memory_gb": mem / 1e9, "head_gb": head / 1e9,
+            "memory_rows": int(se), "gflop": ops / 1e9,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def cross_attention_range():
+    """Open a ``torch.profiler`` range (``CROSS_RANGE``) around each call
+    of the LM's cross-attention (``lm.cross_attention_train``), so a
+    profile can give the kernels it launches to it."""
+    import torch
+    from repro_torch.models import lm
+    saved = lm.cross_attention_train
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function(CROSS_RANGE):
+            return saved(*a, **k)
+    lm.cross_attention_train = ranged
+    try:
+        yield
+    finally:
+        lm.cross_attention_train = saved
+
+
+def eager_cross_split(step):
+    """Device ms of one eager call of ``step`` by part: each kernel whose
+    launching op ran inside ``cross_attention_range`` goes to the
+    cross-attention (its K/V recompute over the memory, its products,
+    softmax and casts; ``ranged_ops``), the others by name
+    (``FRONTEND_KERNELS``), else to the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    step()                                  # warm
+    torch.cuda.synchronize()
+    with cross_attention_range(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    raw = list(prof.profiler.kineto_results.events())
+    info, _ = ranged_ops(raw, {CROSS_RANGE: "cross-attention"})
+    split = {name: 0.0 for name, _ in FRONTEND_KERNELS}
+    split.update({"cross-attention": 0.0, "the rest": 0.0})
+    for k in raw:
+        if k.device_type() != cuda or k.name() == CROSS_RANGE:
+            continue
+        name = k.name().lower()
+        part = info.get(k.linked_correlation_id(), (None, None))[0] or next(
+            (p for p, words in FRONTEND_KERNELS
+             if any(w in name for w in words)), "the rest")
+        split[part] += k.duration_ns() / 1e6
+    check(split["cross-attention"] > 0,
+          f"phase 23: the eager decode step's profile gives no kernel to "
+          f"the cross-attention: {split}")
+    return {"device_ms": sum(split.values()), "device_ms_by_part": split}
+
+
+def frontend_serving(dev, smi, arch, args, steps=32):
+    """Phase 23 (a)-(c) for one family: ``launch.serve`` at full width and
+    depth on ``args``'s requests (gates: finite, one decode graph a
+    bucket, no prefill graph, kernel D a layer a step), then at the
+    largest bucket kernel D against the plain attention, the step's
+    bound, and ``steps`` steps captured against eager, bitwise, each
+    profiled by kernel (and the eager step's cross-attention by range).
+    Returns the rows and the bucket's cache length and rows (for (d))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import grow_cache, init_model, prefill_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_enc = sum(t.numel() for t in tree_leaves(params.get("encoder", {})))
+    print(f"phase 23 (a) {cfg.name}: {cfg.num_layers} decoder layers, "
+          f"{cfg.encoder_layers} encoder layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff} ({cfg.ffn_activation}, bias {cfg.ffn_bias}), "
+          f"{cfg.norm}, vocab {cfg.vocab_size}, patch tokens "
+          f"{cfg.num_patch_tokens}, {cfg.dtype}; {n_params / 1e9:.4f} B "
+          f"parameters ({n_enc / 1e9:.4f} B of encoder) seeded on the card "
+          f"in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = serve(args, params=params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    n_buckets = len(report["prefill_buckets"])
+    out = {"params_b": n_params / 1e9, "encoder_params_b": n_enc / 1e9,
+           "serve": {**{k: report[k] for k in (
+               "prompt_lengths", "prefill_buckets", "prefill_s", "decode_s",
+               "decode_tok_per_s", "decode_compiles", "prefill_compiles",
+               "finite", "sample_generation")},
+               "kernel_d_launches": launches,
+               "kernel_d_launches_per_step": cfg.num_layers,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
+    print(f"phase 23 (a) [{smi}] launch.serve --arch {arch} "
+          f"({args.requests} requests of {args.min_prompt}-"
+          f"{args.max_prompt} tokens): {json.dumps(out['serve'])}",
+          flush=True)
+    check(report["finite"], f"phase 23 (a): non-finite {arch} logits")
+    check(report["decode_compiles"] == n_buckets
+          and report["prefill_compiles"] == 0,
+          f"phase 23 (a): {arch}: decode graphs {report['decode_compiles']} "
+          f"for {n_buckets} buckets, prefill graphs "
+          f"{report['prefill_compiles']}")
+    check(launches == cfg.num_layers * args.max_new * n_buckets,
+          f"phase 23 (a): {arch}: kernel D launched {launches} times, not "
+          f"{cfg.num_layers} x {args.max_new} x {n_buckets}")
+
+    # the largest bucket's own prompts and frontend inputs
+    prompts, lengths = serve_prompts(args, cfg, dev)
+    s_b = max(prompts)
+    idx, batch = prompts[s_b]
+    rows = lengths[idx]
+    cur = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, cache, _ = prefill_step(params, cfg, batch)
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    target = s_b + steps
+    grown = grow_cache(cache, target)
+    _, out["kernel_vs_plain"] = kernel_vs_plain_step(
+        params, cfg, grown, first, cur,
+        f"phase 23 (b) [{smi}] {arch} serve step (bucket {s_b}, "
+        f"{rows.size} rows)")
+    bound = frontend_decode_bound(params, cfg, first, grown, cur)
+    out["bound"] = bound
+    print(f"phase 23 (a) [{smi}] {arch} decode step bound at the bucket's "
+          f"first step: {json.dumps(bound)}", flush=True)
+    del grown
+
+    # (c) the bucket's decode captured and eager, from one prefill
+    runs, same = captured_and_eager(
+        params, cfg, dev, cache, first, cur, target + 8, steps, bound,
+        FRONTEND_KERNELS, f"phase 23 (c) [{smi}] {arch} decode", s_b,
+        eager_split=eager_cross_split if cfg.encoder_layers else None)
+    out["decode"] = {**runs, "bucket": s_b, "rows": int(rows.size),
+                     "leaves_compared": len(same),
+                     "captured_equals_eager": all(same)}
+    prof = runs["captured"]["profile"]
+    print(f"phase 23 (a) [{smi}] {arch} largest bucket ({s_b}, {rows.size} "
+          f"rows): {runs['captured']['ms_per_step']:.3f} ms a decode step "
+          f"captured ({runs['eager']['ms_per_step']:.3f} eager), "
+          f"{runs['captured']['tok_per_s']:.1f} tokens/s, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; "
+          f"{runs['captured']['bound_share']:.3f} of it), idle "
+          f"{prof['idle_share']:.3f}; serve {report['decode_tok_per_s']:.1f} "
+          f"tokens/s, prefill {report['prefill_s']:.3f} s, peak "
+          f"{out['serve']['peak_gb']:.2f} GB, kernel D {launches} launches",
+          flush=True)
+    print(f"phase 23 (c): {steps} tokens of {rows.size} rows, captured "
+          f"equal to eager bit for bit in tokens, logits and "
+          f"{len(same) - 2} cache leaves: {same}", flush=True)
+    check(all(same), f"phase 23 (c): {arch}: the captured decode's tokens, "
+                     f"logits or cache differ from the eager decode's")
+    check(prof["device_busy_ms_per_step"] > 0
+          and prof["device_ms_per_step"]["kernel D"] > 0
+          and prof["kernel_d_records_per_step"] <= cfg.num_layers,
+          f"phase 23 (c): {arch}: the profile of the captured decode step "
+          f"saw no kernel D: {prof['device_ms_per_step']}")
+    del cache, params, batch, prompts, logits, first
+    return out, (target, rows)
+
+
+def frontend_reduced(dev, smi):
+    """Phase 23 (e): each family at ``--reduced`` through ``launch.train``
+    on the card (4 steps: one captured graph, the loss finite and
+    falling), then the reduced model (f32) on the card against the CPU
+    from the same weights: ``train_loss`` and its gradient at batch 4 x
+    160 (the frames or patches included), and prefill of 149 tokens (with
+    the same frames or patches) then one decode step against the train
+    forward at position 149."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.lm import (_head_weight, grow_cache, init_model,
+                                       model_hidden_train, prefill_step,
+                                       serve_step, train_loss)
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        argv = ["--workload", "lm", "--arch", arch, "--reduced", "--steps",
+                "4", "--device", dev.type]
+        rep, state = launcher.run_lm(launcher.parser().parse_args(argv))
+        row = {"train": {"losses": rep["losses"],
+                         "compiles": state["step"].compiles,
+                         "batch": {k: list(v.shape)
+                                   for k, v in state["batch"].items()}}}
+        del state
+        print(f"phase 23 (e) [{smi}] launch.train {' '.join(argv)}: "
+              f"{json.dumps(row['train'])}", flush=True)
+        check(all(np.isfinite(rep["losses"])) and row["train"]["compiles"] == 1
+              and rep["losses"][-1] < rep["losses"][0],
+              f"phase 23 (e): reduced {arch} training: {row['train']}")
+        rcfg = get_config(arch).reduced()
+        seeded = init_model(rcfg, "cpu", seed=0)
+        grads, losses, forward = {}, {}, {}
+        s = 150
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda x: x.to(device, copy=True), seeded)
+            batch = make_batch(rcfg, 4, 160, seed=0, device=device)
+            loss, g = value_and_grad(lambda q: train_loss(q, rcfg, batch), p)
+            losses[name], grads[name] = float(loss), tree_leaves(g)
+            full = make_batch(rcfg, 2, s, seed=3, device=device)
+            extra = {k: v for k, v in full.items()
+                     if k in ("patch_embeds", "frames")}
+            tokens = full["tokens"]
+            with torch.no_grad():
+                h, _ = model_hidden_train(p, rcfg, tokens, **extra)
+                want = (h[:, -1] @ _head_weight(p)).float()
+                _, cache, lens = prefill_step(
+                    p, rcfg, {"tokens": tokens[:, :s - 1], **extra})
+                cache = grow_cache(cache, s + 8)
+                got, _ = serve_step(p, rcfg, tokens[:, s - 1:s], cache, lens)
+            forward[name] = (got.cpu(), want.cpu())
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                       for a, b in zip(grads["card"], grads["cpu"],
+                                       strict=True))
+        row.update({
+            "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+            "loss_rel_diff": loss_rel, "grad_diff_over_max": grad_rel,
+            "decode_vs_forward_max_abs": float(
+                (forward["card"][0] - forward["card"][1]).abs().max()),
+            "decode_card_vs_cpu_max_abs": float(
+                (forward["card"][0] - forward["cpu"][0]).abs().max()),
+            "logit_scale": float(forward["cpu"][1].abs().max()),
+            "tol": FRONTEND_TOL})
+        out[arch] = row
+        print(f"phase 23 (e) [{smi}] reduced {arch} (f32, "
+              f"{rcfg.num_layers} layers), the card against the CPU: "
+              f"{json.dumps({k: v for k, v in row.items() if k != 'train'})}",
+              flush=True)
+        scale = row["logit_scale"]
+        check(loss_rel <= FRONTEND_TOL and grad_rel <= FRONTEND_TOL,
+              f"phase 23 (e): {arch}: train_loss or its gradient differ "
+              f"between the card and the CPU ({loss_rel}, {grad_rel})")
+        check(row["decode_vs_forward_max_abs"] <= FRONTEND_TOL * (1 + scale)
+              and row["decode_card_vs_cpu_max_abs"]
+              <= FRONTEND_TOL * (1 + scale),
+              f"phase 23 (e): {arch}: prefill then decode differs from the "
+              f"train forward or from the CPU: {row}")
+        del seeded, grads, forward
+    return out
+
+
+def frontend_families(dev, smi):
+    """Phase 23: the enc-dec (``seamless_m4t_large_v2``) and VLM
+    (``phi3_vision_4p2b``) families at full width and depth, kernel D at
+    D 96 and at seamless's shape, and both families trained reduced.
+    Returns the phase's rows, kernel D's among them."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi,
+           "allocated_gb_at_start": torch.cuda.memory_allocated(dev) / 1e9}
+    print(f"phase 23 [{smi}]: {out['allocated_gb_at_start']:.3f} GB "
+          f"allocated at the start", flush=True)
+    wall, buckets = {}, {}
+    requests = {ENCDEC_ARCH: (8, 64, 1024), VLM_ARCH: (4, 577, 1024)}
+    for arch in FRONTEND_ARCHS:
+        n, lo, hi = requests[arch]
+        args = argparse.Namespace(arch=arch, reduced=False, requests=n,
+                                  min_prompt=lo, max_prompt=hi, max_new=32,
+                                  seed=0, device="cuda")
+        t0 = time.perf_counter()
+        out[arch], buckets[arch] = frontend_serving(dev, smi, arch, args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall[f"serve {arch}"] = time.perf_counter() - t0
+
+    # (b) a 128-token prompt is shorter than phi-3-vision's 576 patches:
+    # the port refuses it (the reference fails on a broadcast there)
+    cfg = get_config(VLM_ARCH)
+    short = argparse.Namespace(arch=VLM_ARCH, reduced=False, requests=1,
+                               min_prompt=128, max_prompt=128, max_new=2,
+                               seed=0, device="cuda")
+    small = dataclasses.replace(cfg, num_layers=1)
+    try:
+        serve(short, cfg=small)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out["short_prompt_refused"] = refused
+    print(f"phase 23 (b) [{smi}] {VLM_ARCH}: a 128-token prompt against "
+          f"{cfg.num_patch_tokens} patch tokens: ValueError {refused!r}",
+          flush=True)
+    check(refused is not None and "num_patch_tokens" in refused,
+          f"phase 23 (b): a 128-token phi-3-vision prompt was not refused: "
+          f"{refused}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) kernel D alone: phi-3-vision's decode shape (D 96), D 96 in f32
+    # at decode_32k's length, seamless's decode shape (D 64, G 1)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows_d = {}
+    for name, arch, h, hkv, d, b, s, dtype, plain_rows in (
+            ("phi3v_serving_d96", VLM_ARCH, 32, 32, 96, None, None,
+             torch.bfloat16, None),
+            ("d96_f32_decode_32k", None, 32, 8, 96, 16, 32768,
+             torch.float32, 8),
+            ("seamless_serving_d64_g1", ENCDEC_ARCH, 16, 16, 64, None, None,
+             torch.bfloat16, None)):
+        if arch:
+            s, served = buckets[arch]
+            b = plain_rows = int(served.size)
+            filled = torch.as_tensor(served + 1, dtype=torch.int32,
+                                     device=dev)
+        else:
+            filled = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            filled[:3] = torch.tensor([1, s // 2 + 1, s])
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        rows_d[name] = kernel_d_case(
+            q, k, v, filled, plain_rows,
+            f"phase 23 (d) {name} (B {b}, S {s}, H {h}, Hkv {hkv}, D {d}, "
+            f"{str(dtype).split('.')[-1]})")
+        check(rows_d[name]["bitwise_repeatable"],
+              f"phase 23 (d): kernel D at {name}: two calls differ")
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["kernel_d"] = rows_d
+
+    t0 = time.perf_counter()
+    out["reduced"] = frontend_reduced(dev, smi)
+    wall["reduced"] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 23: {out['phase_s']:.1f} s wall ({json.dumps(wall)})",
+          flush=True)
     return out
 
 
@@ -4942,6 +5404,17 @@ def main():
         if k["name"] == "flash_decode":
             k["launches_phase22_deepseek"] = deepseek["serve"][
                 "kernel_d_launches"]
+
+    # -- 23. the enc-dec and VLM families, kernel D at D 96 ----------------
+    torch.cuda.empty_cache()
+    frontends = frontend_families(dev, smi)
+    for k in kernels:
+        if k["name"] == "flash_decode":
+            k["shapes"].update(frontends["kernel_d"])
+            k["launches_phase23_seamless"] = frontends[ENCDEC_ARCH][
+                "serve"]["kernel_d_launches"]
+            k["launches_phase23_phi3v"] = frontends[VLM_ARCH]["serve"][
+                "kernel_d_launches"]
     kernels.append(exchange_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
@@ -4970,7 +5443,8 @@ def main():
                          if k != "losses"},
         "phase20": {k: v for k, v in moe.items() if k != "kernel_d"},
         "phase21": {k: v for k, v in ssm.items() if k != "kernel_d"},
-        "phase22": deepseek}))
+        "phase22": deepseek,
+        "phase23": {k: v for k, v in frontends.items() if k != "kernel_d"}}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -54,6 +54,10 @@
 //   a position for Q K^T (one max reduction per row and tile), then
 //   threads own columns for P V.
 //
+// Head dims: 64, 96 and 128, each its own instantiation with its own
+// 1/sqrt(D) (96 is phi-3-vision's 3,072 / 32; its bf16 rows need their own
+// swizzle, TileB, and its f32 P V its own thread-to-column map).
+//
 // Masked positions take the reference's -1e30 (not -inf) and p = 0, so an
 // all-masked state merges as weight 0 without NaNs; the sum l is divided
 // out as acc / max(l, 1e-30). Length 0 gives 0, as the TPU kernel does.
@@ -77,12 +81,24 @@ struct Scale;
 template <>
 struct Scale<64> { static constexpr float value = 0.125f; };
 template <>
+struct Scale<96> { static constexpr float value = 0.10206207261596575f; };
+template <>
 struct Scale<128> { static constexpr float value = 0.08838834764831845f; };
 
 // ---- shared-memory tiles ------------------------------------------------
 
 // bf16: 64-position tiles, rows of 2*D bytes with their 16-byte chunks
-// XOR-swizzled by (row % 8).
+// XOR-swizzled within the row, so that the 8 rows one ldmatrix matrix reads
+// (8 consecutive rows, one chunk column) land in 8 different 16-byte bank
+// groups. Row r starts at bank group (2*D/16 * r) % 8.
+// - D 64 and 128 (8 and 16 chunks, rows of 128 and 256 bytes, every row at
+//   group 0): chunk c goes to c ^ (r % 8).
+// - D 96 (12 chunks, rows of 192 bytes: row r starts at group 4 * (r % 2),
+//   so rows r and r + 2 alias unswizzled): chunks 0-7 go to c ^ (r % 8),
+//   which stays in 0-7 and gives group (4r + (c ^ r)) % 8, distinct over
+//   8 rows; chunks 8-11 go to c ^ ((r / 2) % 4), which stays in 8-11 (the
+//   row's end) and gives the even rows groups 0-3 and the odd rows groups
+//   4-7, each once. No padding: the ring stays 3 * 2 * 64 * 192 bytes.
 template <int D>
 struct TileB {
   static constexpr int TP = 64;
@@ -90,8 +106,10 @@ struct TileB {
   static constexpr int ROW = D * 2;
   static constexpr int BYTES = TP * ROW;
   static constexpr int RING = kStages * 2 * BYTES;
+  static_assert(CPR % 8 == 0 || CPR == 12, "a swizzle for this row width");
   __device__ static int off(int r, int c) {
-    return r * ROW + ((c ^ (r & 7)) << 4);
+    const int x = (CPR % 8 == 0 || c < 8) ? (r & 7) : ((r >> 1) & 3);
+    return r * ROW + ((c ^ x) << 4);
   }
 };
 
@@ -501,8 +519,12 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   constexpr int TP = Tile::TP;
   static_assert(TP == 32, "one lane a position");
   constexpr int RW = R / kWarps;         // rows a warp owns in Q K^T
+  // P V: thread t < RS * D owns column t % D of rows t / D + RS * i. D 64
+  // and 128 divide the block (RS 2 and 1: every thread owns a column); at
+  // D 96 RS is 1 and threads 96-127 (warp 3) own none and sit P V out
   constexpr int RS = kThreads / D;       // threads a column in P V
   constexpr int NR = R / RS;             // rows a thread owns in P V
+  static_assert(RS >= 1 && R % RS == 0, "whole rows per thread in P V");
   extern __shared__ __align__(128) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + Tile::RING);   // [R][D]
   float* ps = qs + R * D;                                    // [R][TP]
@@ -532,6 +554,7 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   const int ntiles = (s1 - s0 + TP - 1) / TP;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int col = threadIdx.x % D, rgrp = threadIdx.x / D;
+  const bool pv = threadIdx.x < RS * D;  // owns a column in P V
 
   const long long row_stride = static_cast<long long>(hkv) * D;
   const long long base = static_cast<long long>(b) * s_len * row_stride
@@ -603,15 +626,17 @@ flash_decode_f32_kernel(const float* __restrict__ q,
     __syncthreads();
 
     // P V: this thread's column against its rows
+    if (pv) {
 #pragma unroll
-    for (int i = 0; i < NR; ++i) acc[i] *= al[rgrp + RS * i];
+      for (int i = 0; i < NR; ++i) acc[i] *= al[rgrp + RS * i];
 #pragma unroll 4
-    for (int pp = 0; pp < TP; ++pp) {
-      const float vx =
-          reinterpret_cast<const float*>(sv + pp * Tile::ROW)[col];
+      for (int pp = 0; pp < TP; ++pp) {
+        const float vx =
+            reinterpret_cast<const float*>(sv + pp * Tile::ROW)[col];
 #pragma unroll
-      for (int i = 0; i < NR; ++i)
-        acc[i] = fmaf(ps[(rgrp + RS * i) * TP + pp], vx, acc[i]);
+        for (int i = 0; i < NR; ++i)
+          acc[i] = fmaf(ps[(rgrp + RS * i) * TP + pp], vx, acc[i]);
+      }
     }
   }
   cp_wait<0>();
@@ -628,8 +653,10 @@ flash_decode_f32_kernel(const float* __restrict__ q,
       fl[warp + kWarps * j] = l;
     }
   }
+  if (pv) {
 #pragma unroll
-  for (int i = 0; i < NR; ++i) facc[(rgrp + RS * i) * D + col] = acc[i];
+    for (int i = 0; i < NR; ++i) facc[(rgrp + RS * i) * D + col] = acc[i];
+  }
   __syncthreads();
   finish<float, D>(fm, fl, facc, rows, out_rows, ws_ml, ws_acc,
                    cnt + static_cast<long long>(b) * gridDim.y + blockIdx.y,
@@ -646,7 +673,14 @@ template <int D, int R>
 constexpr int smem_f32() {
   return TileF<D>::RING + (R * D + R * TileF<D>::TP + R) * 4;
 }
-static_assert((kMaxRows * 5 * 64 + 10 * kMaxRows) * 4 <= TileB<64>::RING,
+// the bf16 block's state at the end (facc, fm, fl and the warps' wacc,
+// wm, wl) in the ring's bytes, at every instantiated D
+template <int D>
+constexpr bool bf16_state_fits() {
+  return (kMaxRows * 5 * D + 10 * kMaxRows) * 4 <= TileB<D>::RING;
+}
+static_assert(bf16_state_fits<64>() && bf16_state_fits<96>()
+                  && bf16_state_fits<128>(),
               "the bf16 state fits the ring");
 
 template <typename Kernel>
@@ -720,15 +754,19 @@ int f32_rows(int g) { return g <= 4 ? 4 : g <= 8 ? 8 : 16; }
 
 cudaError_t dispatch(bool is_bf16, int d, const Args& a, bool occupancy_only,
                      int* blocks) {
-  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (d != 64 && d != 96 && d != 128) return cudaErrorInvalidValue;
   if (a.hkv <= 0 || a.h % a.hkv != 0) return cudaErrorInvalidValue;
   if (is_bf16)
-    return d == 64 ? launch_bf16<64>(a, occupancy_only, blocks)
-                   : launch_bf16<128>(a, occupancy_only, blocks);
+    return d == 64   ? launch_bf16<64>(a, occupancy_only, blocks)
+           : d == 96 ? launch_bf16<96>(a, occupancy_only, blocks)
+                     : launch_bf16<128>(a, occupancy_only, blocks);
   switch (f32_rows(a.h / a.hkv) * 1000 + d) {
     case 4064: return launch_f32<64, 4>(a, occupancy_only, blocks);
     case 8064: return launch_f32<64, 8>(a, occupancy_only, blocks);
     case 16064: return launch_f32<64, 16>(a, occupancy_only, blocks);
+    case 4096: return launch_f32<96, 4>(a, occupancy_only, blocks);
+    case 8096: return launch_f32<96, 8>(a, occupancy_only, blocks);
+    case 16096: return launch_f32<96, 16>(a, occupancy_only, blocks);
     case 4128: return launch_f32<128, 4>(a, occupancy_only, blocks);
     case 8128: return launch_f32<128, 8>(a, occupancy_only, blocks);
     default: return launch_f32<128, 16>(a, occupancy_only, blocks);

@@ -38,8 +38,8 @@ __all__ = ["flash_decode", "launch", "plain", "launches", "plan"]
 #: Kernel launches since the last reset (see ``ops.reset_launch_counts``).
 launches = 0
 
-#: Head dims the kernel takes.
-HEAD_DIMS = (64, 128)
+#: Head dims the kernel takes (96: phi-3-vision's 3,072 / 32 heads).
+HEAD_DIMS = (64, 96, 128)
 MAX_ROWS = 16              # query rows one block holds (the source's)
 MAX_CHUNK = 4096           # longest stretch of the cache one block reads
 MAX_SPLITS = 256           # most stretches

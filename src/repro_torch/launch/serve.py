@@ -4,7 +4,13 @@ Requests are grouped into power-of-two prompt-length buckets; each bucket
 shares one padded prefill and decodes in lock-step with per-request
 lengths. The prompts, their lengths and the buckets come from the same
 numpy seed, drawn in the same order, as the reference launcher's, and the
-report has its keys.
+report has its keys. A bucket's batch (:func:`bucket_batch`) holds its
+tokens and the frontends' stub inputs, drawn right after them: a VLM's
+``patch_embeds`` (``num_patch_tokens`` a row, which replace the prompt's
+first positions, so a bucket shorter than that raises ``ValueError``, as
+``prefill_step`` does: phi-3-vision's 576 patches need prompts of 577 to
+1,024 tokens, the 1,024 bucket), or an enc-dec model's ``frames`` (``max(8,
+bucket // 8)`` a row), whose encoding the cache keeps as ``memory``.
 
 The decode step (:func:`repro_torch.launch.steps.make_decode_step`, then
 the argmax and the length's increment) is a
@@ -12,7 +18,8 @@ the argmax and the length's increment) is a
 in one graph pool: one CUDA graph per bucket on the card, the bucket's
 grown cache bound by address (written in place by the graph: K/V rows,
 MLA's ckv/krope rows, and, for the SSM and hybrid families, every block's
-recurrent state), the token and lengths donated. A step of its own, because a cache is bound by
+recurrent state; an enc-dec cache's ``memory`` is bound and only read),
+the token and lengths donated. A step of its own, because a cache is bound by
 address: two buckets of an SSM (whose states have no sequence axis) may
 give the decode the same shapes, and so one signature, with two caches.
 ``decode_compiles`` counts the graphs, one per bucket, which is the
@@ -39,6 +46,7 @@ from ..configs import get_config
 from ..device import resolve_device, synchronize
 from ..graphs import CapturedStep, new_pool
 from ..models.config import ModelConfig
+from ..models.layers import torch_dtype
 from ..models.lm import SEQ_LEAVES, grow_cache, init_model
 from .steps import make_decode_step, make_prefill_step
 
@@ -51,6 +59,25 @@ def prefill_bucket(length: int) -> int:
     while b < length:
         b *= 2
     return b
+
+
+def bucket_batch(rng: np.random.Generator, cfg: ModelConfig, n: int,
+                 s_b: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """One bucket's prefill batch, drawn from ``rng`` in the reference
+    launcher's order: ``tokens [n, s_b]``, then a VLM's ``patch_embeds
+    [n, num_patch_tokens, d]`` or an enc-dec model's ``frames [n, max(8,
+    s_b // 8), d]``, N(0, 0.02) in the config's dtype."""
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                                    (n, s_b)),
+                                       dtype=torch.int32, device=device)}
+    widths = {"vision": ("patch_embeds", cfg.num_patch_tokens),
+              "audio": ("frames", max(8, s_b // 8))}
+    if cfg.frontend in widths:
+        name, width = widths[cfg.frontend]
+        batch[name] = torch.as_tensor(
+            rng.normal(0, 0.02, (n, width, cfg.d_model)),
+            dtype=torch_dtype(cfg), device=device)
+    return batch
 
 
 def make_decode(params: Dict, cfg, device: torch.device,
@@ -83,7 +110,9 @@ def _state_copies(cache: Dict) -> Dict:
     other than ``k``/``v``/``ckv``/``krope``) copied. K/V, MLA's latent
     ``ckv``/``krope`` and a stacked cache (its ``first_dense`` entries
     too) are shared: a row the warm-up writes, the first replay writes
-    again with the same values."""
+    again with the same values. An enc-dec cache's ``memory``, which
+    decode only reads, is shared too: the warm-up and the graph read the
+    tensor the cache holds, and no step copies it."""
     if not isinstance(cache["layers"], list):
         return cache
     return {**cache, "layers": [
@@ -125,9 +154,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict] = None,
             decode = make_decode(params, cfg, device, capture, pool)
             idx = np.where(buckets == s_b)[0]
             bucket_counts[int(s_b)] = int(idx.size)
-            tokens = rng.integers(1, cfg.vocab_size, (idx.size, s_b))
-            batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                               device=device)}
+            batch = bucket_batch(rng, cfg, idx.size, s_b, device)
             t0 = time.perf_counter()
             logits, cache, _ = prefill(params, batch)
             cache = grow_cache(cache, s_b + args.max_new)

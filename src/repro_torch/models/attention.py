@@ -14,7 +14,12 @@ chunked attention; its decode (:func:`mla_decode`) is the reference's
 **absorbed** form: ``W_uk`` folds into the query, attention runs over the
 latent cache in f32, and ``W_uv`` applies to the result. Like the
 reference's, it is plain products (``einsum``) and launches no kernel of
-its own. Cross-attention is not ported yet.
+its own.
+
+Cross-attention (:func:`cross_attention_train`, the enc-dec decoder's
+attention over the encoder's ``memory``) is plain products too, with no
+RoPE on either side, in prefill, training and decode alike: decode
+recomputes the memory's K/V at every step, as the reference does.
 """
 from __future__ import annotations
 
@@ -99,12 +104,14 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_train(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                     x: torch.Tensor, positions: torch.Tensor,
-                    return_kv: bool = False):
-    """Full-sequence self-attention. x: ``[B, S, d]``."""
+                    causal: Optional[bool] = None, return_kv: bool = False):
+    """Full-sequence self-attention. x: ``[B, S, d]``. ``causal`` (default
+    ``cfg.causal``): an encoder layer passes False."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     window = cfg.window if cfg.attention == "sliding" else None
-    out = _attend_chunked(q, k, v, cfg.causal, window)
+    causal = cfg.causal if causal is None else causal
+    out = _attend_chunked(q, k, v, causal, window)
     out = out.reshape(b, s, -1) @ p["wo"]
     if return_kv:
         return out, k, v
@@ -140,6 +147,22 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                        cache_v, filled)
     out = out.reshape(b, 1, h * dh).to(x.dtype)
     return out @ p["wo"], cache_k, cache_v
+
+
+def cross_attention_train(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                          x: torch.Tensor, memory: torch.Tensor
+                          ) -> torch.Tensor:
+    """Decoder -> encoder cross-attention: x ``[B, S, d]`` attends over
+    ``memory [B, Sm, d]`` with no mask and no RoPE (nor biases) on either
+    side. Decode calls it with ``S = 1``."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, dh)
+    k = (memory @ p["wk"]).reshape(b, sm, hkv, dh)
+    v = (memory @ p["wv"]).reshape(b, sm, hkv, dh)
+    out = _attend_chunked(q, k, v, causal=False, window=None)
+    return out.reshape(b, s, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,11 @@ other. :func:`params_to_reference`
 goes back: the port's params as the reference's numpy tree, which the
 tests compare with the reference's and the LM checkpoint stores.
 
+An enc-dec model's ``encoder`` holds ``layers`` and ``final_norm``; its
+layers are scan-stacked in the reference's homogeneous layout and carry
+over as ``layers`` do, one dict a layer in the port. Its decode cache's
+``memory`` (the encoder's output) carries over as it is.
+
 A block pattern (xlstm, zamba2) is laid out per layer in both packages:
 the reference's ``layers`` is already a list of per-layer dicts, ``{}`` at
 each ``shared_attn`` position, beside a top-level ``shared_attn``, and its
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .lm import check_supported, first_dense, per_layer
+from .lm import first_dense, per_layer
 
 
 def tensor_from_numpy(x: Any, device: torch.device) -> torch.Tensor:
@@ -61,16 +66,21 @@ def _unstack(tree: Any, i: int) -> Any:
 
 def params_from_reference(tree: Dict, cfg: ModelConfig,
                           device: torch.device) -> Dict:
-    """The reference's params (numpy leaves, scan-stacked ``layers``, or
-    per-layer ones for a block pattern) as the port's (one dict per
-    layer) on ``device``."""
-    check_supported(cfg)
+    """The reference's params (numpy leaves, scan-stacked ``layers`` and
+    ``encoder.layers``, or per-layer ones for a block pattern) as the
+    port's (one dict per layer) on ``device``."""
     if per_layer(cfg):
         return _tree(tree, device)
-    params = _tree({k: v for k, v in tree.items() if k != "layers"}, device)
+    params = _tree({k: v for k, v in tree.items()
+                    if k not in ("layers", "encoder")}, device)
     stacked = _tree(tree["layers"], device)
     params["layers"] = [_unstack(stacked, i)
                         for i in range(cfg.num_layers - first_dense(cfg))]
+    if "encoder" in tree:
+        enc = _tree(tree["encoder"], device)
+        enc["layers"] = [_unstack(enc["layers"], i)
+                         for i in range(cfg.encoder_layers)]
+        params["encoder"] = enc
     return params
 
 
@@ -78,11 +88,10 @@ def cache_from_reference(tree: Dict, device: torch.device) -> Dict:
     """The reference's decode cache (numpy leaves: ``layers`` k/v (MLA:
     ckv/krope) stacked ``[L, B, S, ...]`` beside the leading dense
     layers' ``first_dense`` list, or a per-layer list of K/V and block
-    states) as the port's, which has the same layout."""
-    if isinstance(tree["layers"], (list, tuple)):
-        return {"layers": _tree(tree["layers"], device)}
-    return {"first_dense": _tree(tree["first_dense"], device),
-            "layers": _tree(tree["layers"], device)}
+    states; an enc-dec model's ``memory``) as the port's, which has the
+    same layout."""
+    return {k: _tree(v, device) for k, v in tree.items()
+            if k in ("first_dense", "layers", "memory")}
 
 
 def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
@@ -116,11 +125,17 @@ def _stack(layers: List[Any]) -> Any:
 
 def params_to_reference(params: Dict, cfg: ModelConfig) -> Dict:
     """The port's params (one dict per layer) as the reference's: numpy
-    leaves, ``layers`` scan-stacked to ``[L, ...]`` (kept per layer for a
-    block pattern). The inverse of :func:`params_from_reference`."""
-    check_supported(cfg)
+    leaves, ``layers`` and ``encoder.layers`` scan-stacked to ``[L,
+    ...]`` (kept per layer for a block pattern). The inverse of
+    :func:`params_from_reference`."""
     if per_layer(cfg):
         return _numpy_tree(params)
-    tree = _numpy_tree({k: v for k, v in params.items() if k != "layers"})
+    tree = _numpy_tree({k: v for k, v in params.items()
+                        if k not in ("layers", "encoder")})
     tree["layers"] = _stack([_numpy_tree(lp) for lp in params["layers"]])
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {
+            "layers": _stack([_numpy_tree(lp) for lp in enc["layers"]]),
+            "final_norm": _numpy_tree(enc["final_norm"])}
     return tree

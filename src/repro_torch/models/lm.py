@@ -1,6 +1,6 @@
-"""Decoder-only language model (dense, MoE, SSM and hybrid): init, the
-train forward and its chunked loss, prefill, KV cache and recurrent
-state, decode.
+"""Language model (decoder-only: dense, MoE, SSM, hybrid and VLM; and
+encoder-decoder): init, the train forward and its chunked loss, prefill,
+KV cache and recurrent state, decode.
 
 Structure (the reference's names, one entry per layer instead of its
 scan-stacked leaves)::
@@ -10,6 +10,8 @@ scan-stacked leaves)::
       "first_dense": [{"ln1", "attn", "ln2", "ffn"}, ...]  (deepseek-v2)
       "layers":     [{"ln1", "attn", "ln2", "ffn"}, ...]   one dict a layer
       "shared_attn": {"ln1", "attn", "ln2", "ffn"}          (zamba2)
+      "encoder":    {"layers": [{"ln1", "attn", "ln2", "ffn"}, ...],
+                     "final_norm"}                         (seamless)
       "final_norm", "head" ([d, V], absent when tied)
     }
     attn = {"wq", "wk", "wv", "wo", ...}                   GQA
@@ -17,6 +19,19 @@ scan-stacked leaves)::
     ffn = {"w_gate", "w_up", "w_out"}                      a dense layer's
     ffn = {"router", "w_gate", "w_up", "w_out", "shared": [ffn, ...]}
                                                            an MoE layer's
+
+An enc-dec model's decoder layers also hold ``ln_cross`` and ``cross``
+(GQA weights): after self-attention each attends over the encoder's
+output, ``memory [B, Se, d]``, with no mask and no RoPE. The encoder's
+layers (kind ``enc_attn``) are bidirectional self-attention and a dense
+FFN over the stub frame embeddings ``frames [B, Se, d]``, then a final
+norm. Prefill runs the encoder once and keeps ``memory`` in the cache
+(``cache["memory"]``, beside ``layers``); decode reads it at every step
+and recomputes each layer's cross K/V from it, as the reference does, and
+:func:`grow_cache` leaves it as it is. A VLM's ``patch_embeds [B, P, d]``
+replace the embeddings of a prompt's first ``P`` positions, in training
+and in prefill; a prompt shorter than ``P`` raises ``ValueError`` (the
+reference fails there on a broadcast).
 
 An MoE stack with ``first_k_dense`` leading dense layers (deepseek-v2)
 keeps them apart, as the reference does: ``first_dense`` holds those
@@ -58,14 +73,15 @@ sequence chunks (:func:`chunked_ce_loss`): each chunk's ``[B, c, V]``
 logits are computed, reduced and dropped, and recomputed in the backward,
 so no more than one chunk's logits ever exists.
 
-The port runs the homogeneous attention stack (dense and GQA families:
-qwen3, qwen1.5, glm4, nemotron), its mixture-of-experts variant, every
-layer's FFN after the leading dense ones a :mod:`repro_torch.models.moe`
-layer (qwen2-moe, deepseek-v2): its router's aux loss adds into the
-training loss, prefill drops it, decode runs :func:`moe_decode`; MLA
-attention (deepseek-v2: prefill expanded, decode absorbed); and the block
-patterns of the SSM (xlstm) and hybrid (zamba2) families. Encoders and
-modality frontends raise ``NotImplementedError``.
+The port runs every family of the reference: the homogeneous attention
+stack (dense and GQA families: qwen3, qwen1.5, glm4, nemotron), its
+mixture-of-experts variant, every layer's FFN after the leading dense ones
+a :mod:`repro_torch.models.moe` layer (qwen2-moe, deepseek-v2): its
+router's aux loss adds into the training loss, prefill drops it, decode
+runs :func:`moe_decode`; MLA attention (deepseek-v2: prefill expanded,
+decode absorbed); the block patterns of the SSM (xlstm) and hybrid
+(zamba2) families; the enc-dec family (seamless-m4t) and the VLM
+(phi-3-vision) with their frontends' stub inputs.
 """
 from __future__ import annotations
 
@@ -78,8 +94,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
-from .attention import (attention_decode, attention_train, init_attention,
-                        init_mla, mla_decode, mla_train)
+from .attention import (attention_decode, attention_train,
+                        cross_attention_train, init_attention, init_mla,
+                        mla_decode, mla_train)
 from .config import ModelConfig
 from .layers import (apply_norm, ffn_forward, init_ffn, init_norm, normal,
                      torch_dtype)
@@ -93,19 +110,6 @@ LOSS_CHUNK = 512
 # jax.checkpoint_policies.dots_with_no_batch_dims_saveable (x @ W folds
 # to mm; attention's einsums are batched, bmm, and are recomputed)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not run."""
-    missing = [what for what, on in (
-        ("an encoder", cfg.encoder_layers > 0),
-        (f"the {cfg.frontend} frontend", cfg.frontend != "none")) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet; the "
-            f"port's LM runs dense, MoE and MLA attention stacks and the SSM "
-            f"and hybrid block patterns (enc-dec and VLM families are a "
-            f"later slice of the port)")
 
 
 def per_layer(cfg: ModelConfig) -> bool:
@@ -149,24 +153,35 @@ def _layers(params: Params, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, device: torch.device,
                 gen: torch.Generator, kind: str, moe: bool) -> Dict:
+    """One layer: a block, a decoder attention layer (with ``ln_cross``
+    and ``cross`` in an enc-dec model) or an encoder layer
+    (``enc_attn``: GQA self-attention and a dense FFN)."""
     if kind in BLOCKS:
         return {"ln1": init_norm(cfg, device),
                 kind: BLOCKS[kind].init(cfg, device, gen)}
+    if kind == "enc_attn":
+        return {"ln1": init_norm(cfg, device),
+                "attn": init_attention(cfg, device, gen),
+                "ln2": init_norm(cfg, device),
+                "ffn": init_ffn(cfg, device, gen)}
     if kind != "attn":
         raise ValueError(kind)
-    return {"ln1": init_norm(cfg, device),
-            "attn": (init_mla(cfg, device, gen) if cfg.mla
-                     else init_attention(cfg, device, gen)),
-            "ln2": init_norm(cfg, device),
-            "ffn": (init_moe(cfg, device, gen) if moe
-                    else init_ffn(cfg, device, gen))}
+    p = {"ln1": init_norm(cfg, device),
+         "attn": (init_mla(cfg, device, gen) if cfg.mla
+                  else init_attention(cfg, device, gen))}
+    if cfg.encoder_layers:              # the decoder of an enc-dec model
+        p["ln_cross"] = init_norm(cfg, device)
+        p["cross"] = init_attention(cfg, device, gen)
+    p["ln2"] = init_norm(cfg, device)
+    p["ffn"] = (init_moe(cfg, device, gen) if moe
+                else init_ffn(cfg, device, gen))
+    return p
 
 
 def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
                seed: int = 0) -> Params:
     """Seeded weights, made directly on ``device`` by a generator there,
     with the reference's distributions and scales (not its numbers)."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg)
@@ -190,6 +205,11 @@ def init_model(cfg: ModelConfig, device: DeviceLike = "cuda",
     if not cfg.tie_embeddings:
         params["head"] = normal((cfg.d_model, cfg.vocab_size),
                                 (1.0 / cfg.d_model) ** 0.5, dt, device, gen)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "layers": [_init_layer(cfg, device, gen, "enc_attn", moe=False)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(cfg, device)}
     return params
 
 
@@ -219,23 +239,38 @@ def _remat(f: Callable, cfg: ModelConfig) -> Callable:
     return functools.partial(checkpoint, f, **kwargs)
 
 
+def _cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+           memory: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` plus the layer's cross-attention over ``memory`` where the
+    layer has one (an enc-dec decoder layer) and memory is given."""
+    if "cross" not in p or memory is None:
+        return x
+    return x + cross_attention_train(p["cross"], cfg,
+                                     apply_norm(p["ln_cross"], x), memory)
+
+
 def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
                        x: torch.Tensor, positions: torch.Tensor,
                        memory: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer over the whole sequence; returns ``(x, aux_loss)``: an
-    attention layer, dense (aux loss 0) or MoE (its router's aux loss),
-    or a block of :mod:`repro_torch.models.ssm` (aux loss 0)."""
-    if memory is not None or kind not in ("attn",) + tuple(BLOCKS):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r} (memory "
-            f"{memory is not None}) does not train in the port")
+    """One layer over the whole sequence; returns ``(x, aux_loss)``: a
+    decoder attention layer (causal; its cross-attention over ``memory``
+    in an enc-dec model), an encoder layer (``enc_attn``: bidirectional),
+    dense (aux loss 0) or MoE (its router's aux loss), or a block of
+    :mod:`repro_torch.models.ssm` (aux loss 0)."""
     if kind in BLOCKS:
         out, _ = BLOCKS[kind].forward(p[kind], cfg, apply_norm(p["ln1"], x))
         return x + out, torch.zeros((), dtype=torch.float32,
                                     device=x.device)
-    attend = mla_train if cfg.mla else attention_train
-    x = x + attend(p["attn"], cfg, apply_norm(p["ln1"], x), positions)
+    if kind not in ("attn", "enc_attn"):
+        raise ValueError(kind)
+    h = apply_norm(p["ln1"], x)
+    if cfg.mla and kind == "attn":
+        x = x + mla_train(p["attn"], cfg, h, positions)
+    else:
+        x = x + attention_train(p["attn"], cfg, h, positions,
+                                causal=kind == "attn")
+    x = _cross(p, cfg, x, memory)
     h = apply_norm(p["ln2"], x)
     if moe:
         out, aux = moe_forward(p["ffn"], cfg, h)
@@ -244,20 +279,59 @@ def _apply_layer_train(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
     return x + ffn_forward(p["ffn"], cfg, h), aux
 
 
+def _with_patches(x: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The embedded prompt ``x [B, S, d]`` with a VLM's ``patch_embeds
+    [B, P, d]`` (cast to x's dtype) in place of its first ``P``
+    positions. ``S < P`` raises ``ValueError``: the reference's
+    concatenation would lengthen the hidden states past the positions
+    (it fails on a broadcast)."""
+    if patch_embeds is None:
+        return x
+    n = patch_embeds.shape[1]
+    if x.shape[1] < n:
+        raise ValueError(
+            f"a prompt of {x.shape[1]} tokens is shorter than its {n} "
+            f"image patch tokens (num_patch_tokens): a VLM prompt holds "
+            f"at least num_patch_tokens positions")
+    return torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+
+
+def _run_encoder(params: Params, cfg: ModelConfig,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over the stub frame embeddings ``[B, Se,
+    d]`` (each layer under :func:`_remat`), then its final norm: the
+    decoder's ``memory [B, Se, d]``."""
+    enc = params["encoder"]
+    pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames
+    for lp in enc["layers"]:
+        f = _remat(functools.partial(_apply_layer_train, lp, cfg,
+                                     "enc_attn", False), cfg)
+        x, _ = f(x, pos)
+    return apply_norm(enc["final_norm"], x)
+
+
 def model_hidden_train(params: Params, cfg: ModelConfig,
-                       tokens: torch.Tensor
+                       tokens: torch.Tensor,
+                       patch_embeds: Optional[torch.Tensor] = None,
+                       frames: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token ids ``[B, S]`` -> ``(final hidden states [B, S, d], aux
-    loss)``. The embedding lookup is ``F.embedding``, whose backward (the
-    step's one scatter) is deterministic."""
-    check_supported(cfg)
-    x = F.embedding(tokens.long(), params["embed"])
+    """Token ids ``[B, S]`` (a VLM's ``patch_embeds`` in place of the
+    first positions; an enc-dec model's encoder over ``frames``) ->
+    ``(final hidden states [B, S, d], aux loss)``. The embedding lookup is
+    ``F.embedding``, whose backward (the step's one scatter) is
+    deterministic."""
+    x = _with_patches(F.embedding(tokens.long(), params["embed"]),
+                      patch_embeds)
+    memory = _run_encoder(params, cfg, frames) if frames is not None \
+        else None
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for lp, kind, moe in _layers(params, cfg):
         f = _remat(functools.partial(_apply_layer_train, lp, cfg, kind,
                                      moe), cfg)
-        x, a = f(x, positions)
+        x, a = f(x, positions, memory)
         aux_total = aux_total + a
     return apply_norm(params["final_norm"], x), aux_total
 
@@ -306,11 +380,13 @@ def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
 
 def train_loss(params: Params, cfg: ModelConfig,
                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """batch: ``tokens [B, S]``, ``loss_mask [B, S]``. Position ``i``
-    predicts token ``i + 1``; the last position has no label and is
-    masked."""
+    """batch: ``tokens [B, S]``, ``loss_mask [B, S]`` (+ ``patch_embeds``
+    / ``frames``). Position ``i`` predicts token ``i + 1``; the last
+    position has no label and is masked."""
     tokens = batch["tokens"]
-    h, aux = model_hidden_train(params, cfg, tokens)
+    h, aux = model_hidden_train(params, cfg, tokens,
+                                batch.get("patch_embeds"),
+                                batch.get("frames"))
     labels = F.pad(tokens[:, 1:], (0, 1))
     mask = F.pad(batch["loss_mask"][:, 1:], (0, 1)).float()
     loss = chunked_ce_loss(h, _head_weight(params), labels, mask)
@@ -321,13 +397,15 @@ def train_loss(params: Params, cfg: ModelConfig,
 # prefill
 # ---------------------------------------------------------------------------
 def _apply_layer_prefill(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
-                         x: torch.Tensor, positions: torch.Tensor
+                         x: torch.Tensor, positions: torch.Tensor,
+                         memory: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One layer over the whole prompt; returns ``(x, cache entry)``: an
-    attention layer's ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` or, for MLA,
-    ``{"ckv" [B, S, kvr], "krope" [B, S, Dr]}`` (an MoE layer's aux loss
-    is dropped, as in the reference), or a block's final state (mamba's
-    with its conv tail)."""
+    attention layer's ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` (its
+    cross-attention over ``memory`` after self-attention, in an enc-dec
+    model) or, for MLA, ``{"ckv" [B, S, kvr], "krope" [B, S, Dr]}`` (an
+    MoE layer's aux loss is dropped, as in the reference), or a block's
+    final state (mamba's with its conv tail)."""
     if kind in BLOCKS:
         fwd = BLOCKS[kind].forward
         h = apply_norm(p["ln1"], x)
@@ -343,7 +421,7 @@ def _apply_layer_prefill(p: Dict, cfg: ModelConfig, kind: str, moe: bool,
         out, k, v = attention_train(p["attn"], cfg, h, positions,
                                     return_kv=True)
         entry = {"k": k, "v": v}
-    x = x + out
+    x = _cross(p, cfg, x + out, memory)
     h = apply_norm(p["ln2"], x)
     x = x + (moe_forward(p["ffn"], cfg, h)[0] if moe
              else ffn_forward(p["ffn"], cfg, h))
@@ -355,15 +433,21 @@ def prefill_step(params: Params, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Process a full prompt; returns ``(last-token logits [B, V] f32,
     cache, lengths [B])``. The cache is sized exactly to the prompt:
-    :func:`grow_cache` makes room for decode."""
-    check_supported(cfg)
+    :func:`grow_cache` makes room for decode. ``batch`` holds ``tokens
+    [B, S]`` and, for a VLM, ``patch_embeds [B, P, d]`` (``S < P``
+    raises ``ValueError``), for an enc-dec model ``frames [B, Se, d]``,
+    whose encoding the cache keeps as ``memory``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = _with_patches(params["embed"][tokens], batch.get("patch_embeds"))
+    frames = batch.get("frames")
+    memory = _run_encoder(params, cfg, frames) if frames is not None \
+        else None
     positions = torch.arange(s, device=tokens.device)[None, :]
     entries: List[Dict[str, torch.Tensor]] = []
     for lp, kind, moe in _layers(params, cfg):
-        x, c = _apply_layer_prefill(lp, cfg, kind, moe, x, positions)
+        x, c = _apply_layer_prefill(lp, cfg, kind, moe, x, positions,
+                                    memory)
         entries.append(c)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, -1] @ _head_weight(params)).float()
@@ -375,6 +459,8 @@ def prefill_step(params: Params, cfg: ModelConfig,
         cache = {"first_dense": entries[:n_fd],
                  "layers": {n: torch.stack([c[n] for c in stack])
                             for n in stack[0]}}
+    if memory is not None:
+        cache["memory"] = memory
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return logits, cache, lengths
 
@@ -407,7 +493,9 @@ def grow_cache(cache: Cache, target_len: int) -> Cache:
     """The cache with its K/V (or ckv/krope) sequence axis grown to
     ``target_len``, the leading dense layers' entries too. A per-layer
     cache's recurrent states keep their shapes and are copied, so the
-    grown cache owns every tensor that decode writes in place."""
+    grown cache owns every tensor that decode writes in place. An
+    enc-dec cache's ``memory``, which decode only reads, is the same
+    tensor in both."""
     out = dict(cache)
     if isinstance(cache["layers"], list):
         out["layers"] = _grow_entries(cache["layers"], target_len)
@@ -442,31 +530,38 @@ def _attn_cache(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = "cuda") -> Cache:
+               device: DeviceLike = "cuda", enc_len: int = 0) -> Cache:
     """Zero cache: K/V ``[L, B, S, Hkv, Dh]`` (MLA: ckv/krope ``[L, B,
     S, R]``) for a homogeneous stack, a sliding-window config's only
     ``cfg.window`` long (a ring buffer), with a list entry for each
     leading dense layer; per layer for a block pattern, each block's zero
-    state."""
-    check_supported(cfg)
+    state; an enc-dec model's ``memory [B, enc_len, d]``."""
     device = resolve_device(device)
     if not per_layer(cfg):
         n_fd = first_dense(cfg)
-        return {"first_dense": [_attn_cache(cfg, (), batch, seq_len, device)
-                                for _ in range(n_fd)],
-                "layers": _attn_cache(cfg, (cfg.num_layers - n_fd,), batch,
-                                      seq_len, device)}
-    return {"layers": [
-        BLOCKS[kind].zero_state(cfg, batch, device) if kind in BLOCKS else
-        _attn_cache(cfg, (), batch, seq_len, device)
-        for kind in cfg.blocks]}
+        cache = {"first_dense": [_attn_cache(cfg, (), batch, seq_len,
+                                             device) for _ in range(n_fd)],
+                 "layers": _attn_cache(cfg, (cfg.num_layers - n_fd,), batch,
+                                       seq_len, device)}
+    else:
+        cache = {"layers": [
+            BLOCKS[kind].zero_state(cfg, batch, device) if kind in BLOCKS
+            else _attn_cache(cfg, (), batch, seq_len, device)
+            for kind in cfg.blocks]}
+    if cfg.encoder_layers:
+        cache["memory"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                      dtype=torch_dtype(cfg), device=device)
+    return cache
 
 
 def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
-                       c: Dict[str, torch.Tensor],
-                       length: torch.Tensor) -> torch.Tensor:
+                       c: Dict[str, torch.Tensor], length: torch.Tensor,
+                       memory: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """One attention layer's decode step over its cache entry ``c``
-    (``{"k", "v"}``, or MLA's ``{"ckv", "krope"}``), written in place."""
+    (``{"k", "v"}``, or MLA's ``{"ckv", "krope"}``), written in place;
+    an enc-dec decoder layer's cross-attention over ``memory`` after
+    it."""
     h = apply_norm(lp["ln1"], x)
     if cfg.mla:
         out, _, _ = mla_decode(lp["attn"], cfg, h, c["ckv"], c["krope"],
@@ -474,7 +569,7 @@ def _decode_attn_layer(lp: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out, _, _ = attention_decode(lp["attn"], cfg, h, c["k"], c["v"],
                                      length)
-    x = x + out
+    x = _cross(lp, cfg, x + out, memory)
     h = apply_norm(lp["ln2"], x)
     if "router" in lp["ffn"]:
         return x + moe_decode(lp["ffn"], cfg, h)
@@ -499,9 +594,10 @@ def serve_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Decode ONE token. tokens: ``[B, 1]``; lengths: ``[B]`` int32 (the
     current cache fill). Returns ``(logits [B, V] f32, cache)``: the same
     cache object, with this token's K/V rows and every block's new state
-    written in place."""
-    check_supported(cfg)
+    written in place (an enc-dec cache's ``memory`` is read, not
+    written)."""
     x = params["embed"][tokens]                      # [B, 1, d]
+    memory = cache.get("memory") if cfg.encoder_layers else None
     if per_layer(cfg):
         for i, kind in enumerate(cfg.blocks):
             lp, kind = _layer(params, i, kind)
@@ -509,16 +605,16 @@ def serve_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             if kind in BLOCKS:
                 x = _decode_block(lp, cfg, kind, x, c)
             else:
-                x = _decode_attn_layer(lp, cfg, x, c, lengths)
+                x = _decode_attn_layer(lp, cfg, x, c, lengths, memory)
     else:
         for lp, c in zip(params.get("first_dense", []),
                          cache["first_dense"], strict=True):
-            x = _decode_attn_layer(lp, cfg, x, c, lengths)
+            x = _decode_attn_layer(lp, cfg, x, c, lengths, memory)
         stacked = cache["layers"]
         for i, lp in enumerate(params["layers"]):
             x = _decode_attn_layer(lp, cfg, x,
                                    {n: t[i] for n, t in stacked.items()},
-                                   lengths)
+                                   lengths, memory)
     h = apply_norm(params["final_norm"], x)
     logits = (h[:, 0] @ _head_weight(params)).float()
     return logits, cache

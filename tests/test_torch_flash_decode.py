@@ -3,8 +3,9 @@
 On the CPU the port's dispatch (``repro_torch.kernels.ops.flash_decode``)
 runs the plain version, which is held against the reference's Pallas
 kernel run in interpret mode (``repro.kernels.flash_decode``), one
-sequence at a time, on the reference's five sweep cases in f32 and bf16 at
-the reference's own tolerance (``tests/test_kernels.py::_tol``: 2e-5 in
+sequence at a time, on the reference's five sweep cases and two at D 96
+(phi-3-vision's head dim; G 4 and 1) in f32 and bf16 at the reference's
+own tolerance (``tests/test_kernels.py::_tol``: 2e-5 in
 f32, 2e-2 in bf16), with B = 2 and a different length in each row.
 
 The CUDA kernel's arithmetic is held on the CPU through two emulations
@@ -29,10 +30,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_decode as kernel_d        # noqa: E402
 from repro_torch.kernels import ops                             # noqa: E402
 
-# the reference's sweep (tests/test_kernels.py): H, Hkv, D, S, length
+# the reference's sweep (tests/test_kernels.py): H, Hkv, D, S, length;
+# and D 96 (phi-3-vision's head dim) at G 4 and G 1
 SWEEP = [(8, 8, 64, 600, 600), (8, 2, 64, 1000, 777),
          (16, 1, 128, 2048, 1), (4, 4, 128, 512, 512),
-         (32, 8, 128, 1537, 1111)]
+         (32, 8, 128, 1537, 1111), (8, 2, 96, 700, 613),
+         (4, 4, 96, 520, 519)]
 DTYPES = {"float32": dict(rtol=2e-5, atol=2e-5),
           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -370,9 +373,24 @@ def test_cuda_kernel_group_sizes(cuda, g, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+def test_cuda_kernel_at_head_dim_96(cuda, g, dtype):
+    """D 96 at phi-3-vision's decode shape (B 4, a 1,056-long cache, 32
+    query heads) for G = 1 (its own), 4, 8 and 16: each row count of the
+    f32 path (4, 8, 16) and the bf16 path's swizzle, with lengths on and
+    off tile and stretch boundaries."""
+    got, expect = _card_case(32, 32 // g, 96, 1056, 4, getattr(torch, dtype),
+                             [1056, 577, 64, 1], cuda, seed=g)
+    tol = DTYPES[dtype] if dtype == "bfloat16" else dict(rtol=3e-5,
+                                                         atol=3e-5)
+    torch.testing.assert_close(got, expect, **tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d,s,length", [
     (32, 8, 128, 1056, 882), (32, 2, 128, 32768, 32768),
-    (16, 1, 64, 4096, 2049)])
+    (16, 1, 64, 4096, 2049), (32, 32, 96, 1056, 882)])
 def test_cuda_bf16_kernel_matches_its_emulation(cuda, h, hkv, d, s, length):
     """The bf16 kernel against the CPU emulation of its roundings: they
     differ by the f32 sums' order only, within one bf16 rounding."""
@@ -431,8 +449,8 @@ def test_cuda_kernel_length_zero_gives_zero(cuda):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_what_it_cannot_take(cuda):
-    q = torch.zeros((1, 4, 96), device=cuda)
-    k = torch.zeros((1, 8, 2, 96), device=cuda)
+    q = torch.zeros((1, 4, 80), device=cuda)
+    k = torch.zeros((1, 8, 2, 80), device=cuda)
     with pytest.raises(ValueError, match="D in"):
         kernel_d.launch(q, k, k, torch.ones(1, dtype=torch.int32,
                                             device=cuda))

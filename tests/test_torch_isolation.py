@@ -12,7 +12,10 @@
   (``init_model``, ``init_cache``, ``python -m repro_torch.launch.serve``),
   the training CLI (``python -m repro_torch.launch.train``, both
   workloads, which loads neither ``jax`` nor ``repro`` either), the LM's
-  train step, ``examples/long_context_serving_torch.py`` and
+  train step, the enc-dec and VLM families' paths (the encoder,
+  cross-attention, the frontends' inputs in ``launch.serve`` and
+  ``launch.train``, which load neither either),
+  ``examples/long_context_serving_torch.py`` and
   ``examples/moe_expert_placement_torch.py`` (which load neither either);
   ``chip_smoke.py`` exits
   non-zero and prints no result without a GPU, and when the rest of the
@@ -210,9 +213,18 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.models import lm
     cfg = get_config("qwen3_4b").reduced()
     moe_cfg = get_config("qwen2_moe_a2p7b").reduced()
+    encdec = get_config("seamless_m4t_large_v2").reduced()
+    vlm = get_config("phi3_vision_4p2b").reduced()
     for call in (lambda: lm.init_model(cfg), lambda: lm.init_cache(cfg, 1, 8),
                  lambda: lm.init_model(moe_cfg),
+                 lambda: lm.init_model(encdec),
+                 lambda: lm.init_cache(encdec, 1, 8, enc_len=8),
+                 lambda: lm.init_model(vlm),
                  lambda: serve.main(["--reduced", "--requests", "1"]),
+                 lambda: serve.main(["--arch", "seamless_m4t_large_v2",
+                                     "--reduced", "--requests", "1"]),
+                 lambda: serve.main(["--arch", "phi3_vision_4p2b",
+                                     "--reduced", "--requests", "1"]),
                  lambda: steps.make_train_step(cfg),
                  lambda: train.main(["--workload", "lm", "--reduced",
                                      "--steps", "1"]),
@@ -285,6 +297,56 @@ def test_train_cli_needs_a_gpu_unless_told_cpu_and_loads_no_reference(
         assert out.returncode == 0, out.stderr
         report = json.loads(out.stdout[:out.stdout.rindex("\n{")])
         assert report["workload"] == workload
+
+
+FAMILY_RUNNER = """
+import json, runpy, sys
+sys.path[:0] = [{src!r}]
+codes = []
+for mod, argv in {runs!r}:
+    sys.argv = ["python -m " + mod] + argv
+    try:
+        runpy.run_module(mod, run_name="__main__", alter_sys=True)
+        codes.append(0)
+    except RuntimeError as e:
+        codes.append(str(e))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print(json.dumps({{"codes": codes, "bad": bad}}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2",
+                                  "phi3_vision_4p2b"])
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_frontend_families_need_a_gpu_unless_told_cpu_and_load_no_reference(
+        arch, device):
+    """The enc-dec and VLM families through ``launch.serve`` and
+    ``launch.train`` (the encoder and cross-attention, the frames and
+    patches drawn for each bucket and batch): each raises without a GPU
+    unless given ``--device cpu``, serves and trains with it, and neither
+    loads ``jax`` or ``repro``."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    tail = ["--device", device] if device else []
+    runs = [("repro_torch.launch.serve",
+             ["--arch", arch, "--reduced", "--requests", "2", "--max-new",
+              "2"] + tail),
+            ("repro_torch.launch.train",
+             ["--workload", "lm", "--arch", arch, "--reduced", "--steps",
+              "2", "--seq", "32"] + tail)]
+    out = subprocess.run(
+        [sys.executable, "-c", FAMILY_RUNNER.format(
+            src=os.path.join(ROOT, "src"), runs=runs)],
+        capture_output=True, text=True, timeout=180, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    if device is None:
+        assert all("device='cpu'" in str(c) for c in result["codes"])
+    else:
+        assert result["codes"] == [0, 0]
+        assert '"finite": true' in out.stdout
+        assert '"workload": "lm"' in out.stdout
 
 
 EXAMPLE_RUNNER = """

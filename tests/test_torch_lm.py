@@ -176,18 +176,6 @@ def test_norm_and_ffn_variants_match_reference(ref, arch):
                               ref.jnp.asarray(x)))
 
 
-def test_unported_families_raise():
-    # MoE and MLA layers run, leading dense layers before the experts too
-    # (deepseek's first_k_dense: tests/test_torch_mla.py); the enc-dec and
-    # VLM families do not
-    for cfg in [port_configs.get_config(arch).reduced() for arch in (
-            "seamless_m4t_large_v2", "phi3_vision_4p2b")]:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.init_model(cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.init_cache(cfg, 1, 8, "cpu")
-
-
 def test_seeded_init_matches_reference_shapes_and_scales(ref):
     rcfg, cfg = ref.get_config("glm4_9b").reduced(), \
         port_configs.get_config("glm4_9b").reduced()

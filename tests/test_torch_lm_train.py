@@ -423,17 +423,6 @@ def test_bf16_lm_checkpoint_restores_in_both_packages(ref, tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_unported_families_raise_in_training():
-    # MoE and MLA layers train, leading dense layers before the experts
-    # too (deepseek's first_k_dense: tests/test_torch_mla.py); the enc-dec
-    # and VLM families do not
-    for cfg in [get_config(arch).reduced() for arch in (
-            "seamless_m4t_large_v2", "phi3_vision_4p2b")]:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.model_hidden_train({}, cfg,
-                                  torch.zeros((1, 4), dtype=torch.int32))
-
-
 # ---------------------------------------------------------------------------
 # the CLI: python -m repro_torch.launch.train --device cpu
 # ---------------------------------------------------------------------------

@@ -397,10 +397,8 @@ def test_params_round_trip(ref, arch, dtype):
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_seeded_init_and_cache_match_reference_structure(ref, arch):
     """The port's seeded weights and zero cache have the reference's tree,
-    shapes and dtypes (the sLSTM's ``m`` starts at -1e30), and the full
-    config passes ``check_supported``."""
+    shapes and dtypes (the sLSTM's ``m`` starts at -1e30)."""
     jax = ref.jax
-    lm.check_supported(get_config(ARCHS[arch][0]))
     rcfg, cfg = _configs(ref, arch, dtype="bfloat16")
     shapes = jax.eval_shape(lambda: ref.lm.init_model(jax.random.PRNGKey(0),
                                                       rcfg))
