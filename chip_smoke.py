@@ -379,6 +379,7 @@ the rest of the repository beside it, it exits non-zero before any result.
 import argparse
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import statistics
@@ -4957,6 +4958,385 @@ def frontend_families(dev, smi):
     return out
 
 
+# phase 24: the main path's launches, one process per partition
+DIST_RANKS = 8
+DIST_EPOCHS = {"local": 60, "sync": 5, "stale": 8}
+DIST_PERIOD = 4
+# distributed against one process: sync's and stale's losses, local's
+# table (bitwise on the H100 since the stacked clip norm reduces each
+# partition alone; 1.3e-2 after 60 epochs while it reduced the stack's rows)
+DIST_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
+DIST_TABLE_TOL = dict(rtol=1e-4, atol=1e-4)
+DIST_ACC_TOL = 0.01
+DIST_TIMEOUT_S = 300
+
+
+def torchrun(args, log_dir, env):
+    """``python -m torch.distributed.run`` on :data:`DIST_RANKS` ranks of
+    this card, each rank's stdout and stderr in its own file under
+    ``log_dir``; returns (exit code, seconds, {rank: (stdout, stderr)}).
+    The launcher and its ranks are one process group, killed on a
+    timeout."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DIST_RANKS), "--log-dir", log_dir,
+           "--redirects", "3", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    logs = {}
+    for r in range(DIST_RANKS):
+        got = []
+        for stream in ("stdout", "stderr"):
+            paths = sorted(glob.glob(os.path.join(log_dir, "*", "attempt_*",
+                                                  str(r), f"{stream}.log")))
+            got.append(open(paths[-1]).read() if paths else "")
+        logs[r] = tuple(got)
+    if proc.returncode != 0:
+        print(f"torchrun {' '.join(args[:4])}: exit {proc.returncode}; "
+              f"launcher: {out[-2000:]}")
+        for r, (o, e) in logs.items():
+            print(f"  rank {r} stderr: {e[-1500:]}")
+    return proc.returncode, wall, logs
+
+
+def rank_summaries(logs, what):
+    """Every rank's ``rank summary:`` line, by rank; fails on a missing
+    one."""
+    out = {}
+    for r, (_, err) in logs.items():
+        lines = [x for x in err.splitlines() if x.startswith("rank summary: ")]
+        check(len(lines) == 1, f"{what}: rank {r} printed "
+                               f"{len(lines)} summaries")
+        out[r] = json.loads(lines[0].split(": ", 1)[1])
+    return out
+
+
+def sync_steps_rank(argv):
+    """One rank of phase 24's repeatability launch (``chip_smoke.py
+    --sync-steps-rank run <the sync launch's flags>``): the partition from
+    the run's cache, this rank's partition on its device, and one sync
+    step from the seeded state taken twice; prints a ``rank summary:``
+    line (bitwise equal, counted bytes, launches, seconds)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import PartitionerSpec
+    from repro_torch.device import synchronize
+    from repro_torch.gnn import distributed
+    from repro_torch.gnn.halo import make_sync_train_step
+    from repro_torch.gnn.infer import (gather_partition_tensors,
+                                       init_partition_models)
+    from repro_torch.gnn.model import GNNConfig
+    from repro_torch.gnn.train import dropout_generators
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (init_process_group_from_env,
+                                         make_local_mesh)
+    from repro_torch.optim import adamw_init
+    from repro_torch.pipeline import cli
+    from repro_torch.pipeline.artifacts import PartitionArtifactStore
+    from repro_torch.pipeline.datasets import get_dataset
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = cli.build_parser().parse_args(argv)
+    pc = cli.config_from_args(args)
+    dev, backend = init_process_group_from_env(args.device)
+    try:
+        ds = get_dataset(pc.dataset, **pc.dataset_kwargs)
+        bundle = PartitionArtifactStore(pc.cache_dir).load_or_compute(
+            ds.graph, PartitionerSpec.parse(pc.method), pc.k, pc.seed,
+            pc.scheme, with_halo=True)
+        batch = bundle.batch
+        cfg = GNNConfig(kind=pc.model, feature_dim=int(ds.features.shape[1]),
+                        hidden_dim=pc.hidden_dim, embed_dim=pc.embed_dim,
+                        num_layers=pc.num_layers, dropout=pc.dropout)
+        sh = distributed.shard(make_local_mesh(), batch.k, dev)
+        tensors = gather_partition_tensors(ds, batch, dev,
+                                           only=slice(sh.lo, sh.hi))
+        params = distributed.slice_params(init_partition_models(
+            cfg, ds.num_classes, batch.k,
+            torch.Generator().manual_seed(pc.seed), dev), sh)
+        step = make_sync_train_step(cfg, distributed.HaloAllGather(
+            bundle.halo, sh, batch.n_pad, dev), ds.multilabel, pc.lr)
+        counter = distributed.StepCounter(sh)
+        runs, secs = [], []
+        for _ in range(2):
+            gens = dropout_generators(pc.seed, batch.k, dev)[sh.lo:sh.hi]
+            opt = adamw_init(params, stacked=True)
+            synchronize(dev)
+            t0 = time.perf_counter()
+            runs.append(counter.step(lambda: step(params, opt, tensors,
+                                                  gens)))
+            synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(runs[0]), tree_leaves(runs[1])))
+        counted = counter.summary()
+        print("rank summary: " + json.dumps({
+            "rank": dist.get_rank(), "backend": backend, "bitwise": same,
+            "step_bytes": [x["total"] for x in counted["steps"]],
+            "seconds": counted["seconds"]["training steps"],
+            "step_s": secs, "launches": ops.launch_counts(),
+            "peak_device_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None)}),
+            file=sys.stderr, flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_backward_row(dev, halo, n_pad, f):
+    """Kernel A as a rank's exchange backward at the main path (the rank
+    whose sent rows gather the most slots): against its plain version
+    (3e-5 of the sum of absolute terms), twice bitwise, timed (CUDA
+    events, device time from the profiler) beside its bound, the plain
+    version and ``index_add_``."""
+    import torch
+    from repro_torch.kernels import csr_aggregate as kernel_a
+    from repro_torch.kernels import exchange
+    from repro_torch.tools.kernel_turns import device_us as profiled
+    rank = max(range(DIST_RANKS),
+               key=lambda r: int((halo.recv_rows[:, r, :] >= 0).sum()))
+    pl = exchange.rank_plan(halo, rank, n_pad, dev)
+    csr = pl.csr
+    rows, e = csr.num_nodes, int(csr.src.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.randn((rows, f), generator=gen, device=dev)
+
+    def call():
+        return exchange.rank_backward_sum(g, pl)
+
+    def plain(x):
+        return kernel_a.plain(x, csr.src, csr.dst, csr.weight, n_pad)
+    out = call()
+    err = max_err(out, plain(g), plain(g.abs()), "rank exchange backward")
+    check(torch.equal(out, call()), "the rank backward: two calls differ")
+    # index_add_: the kept rows, then each slot added into the row it fed
+    keep = ~pl.received
+    slot_rows = csr.dst.long()[csr.src.long() >= n_pad]
+    slots = csr.src.long()[csr.src.long() >= n_pad]
+
+    def library():
+        return (g[:n_pad] * keep).index_add_(0, slot_rows,
+                                             g.index_select(0, slots))
+    check(torch.allclose(library(), out, rtol=1e-5, atol=1e-5),
+          "index_add_ does not compute the rank backward")
+    us, per_call = profiled(call, ("csr_aggregate_gather",
+                                   "csr_aggregate_fixup"))
+    # each arc's source row of g read once (the rows received are read by
+    # no arc), the arcs and the n_pad + 1 row offsets, the n_pad output
+    # rows written once; one multiply-add per arc and feature
+    bound, by = bound_ms(4 * (e * f + 2 * e + n_pad + 1 + n_pad * f),
+                         2 * e * f)
+    row = {"max_abs_err": err, "bitwise_repeatable": True,
+           "device_ms": us * round(per_call) / 1e3,
+           "profiled_launches_per_call": per_call,
+           "ms": time_ms(call), "plain_ms": time_ms(lambda: plain(g)),
+           "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library),
+           "shape": {"rank": rank, "rows": rows, "n_pad": n_pad, "F": f,
+                     "arcs": e, "slot_arcs": int(slots.shape[0]),
+                     "h_pad": int(halo.h_pad), "k": DIST_RANKS}}
+    print(f"phase 24 rank backward (kernel A): {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+def distributed_on_card(dev, smi, ds, cache_dir, phase5):
+    """Phase 24: the paper's training with one process per partition on
+    the card: ``python -m torch.distributed.run --nproc-per-node 8 -m
+    repro_torch.pipeline run`` at phase 5's configuration (its partition
+    and halo plan from the cache) in local (60 epochs), sync (5) and
+    stale(4) (8 epochs: exchanges at 0 and 4); the 8 ranks share the card
+    through gloo, which is not a cluster of 8 cards. Then a fourth launch
+    takes one sync step from the seeded state twice on every rank. Gates:
+    every rank exits 0; each rank's counted bytes a training step are
+    exactly ``exchange_collective_bytes`` (a sync step 1,368,260,608),
+    local's steps and stale's between-exchange steps 0; kernels A and B
+    (and in sync and stale, the rank backward) launch on every rank;
+    local's table within ``DIST_TABLE_TOL`` of phase 5's and its test
+    accuracy within 0.01; sync's and stale's losses within
+    ``DIST_LOSS_TOL`` of a one-process run of the same epochs; the two
+    sync steps bitwise equal on every rank. Printed, not gated: whether
+    each comparison is bitwise, ms an epoch beside the one-process figure,
+    collective and staging seconds a step, each rank's peak device GB.
+    Returns (rows, the kernel row)."""
+    import numpy as np
+    import torch
+    from repro_torch.gnn.halo import exchange_collective_bytes
+    from repro_torch.kernels import autotune
+    from repro_torch.pipeline.pipeline import PipelineConfig, run_training
+    t0 = time.perf_counter()
+    rows = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dist-",
+                                     dir=ROOT) as tmp:
+        env["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+        # the one-process runs below resolve what the ranks resolve: phase
+        # 17 may have tuned this process's cache at the main path's bucket
+        own_cache = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = env[
+            "REPRO_TORCH_AUTOTUNE_CACHE"]
+        autotune.clear_memory_cache()
+        flags = ["--dataset", "arxiv-like", "--dataset-scale",
+                 repr(ARXIV_SCALE), "--k", str(DIST_RANKS), "--sync-period",
+                 str(DIST_PERIOD), "--cache-dir", cache_dir]
+        for mode, epochs in DIST_EPOCHS.items():
+            bundle_dir = os.path.join(tmp, "bundle")
+            args = ["-m", "repro_torch.pipeline", "run", *flags, "--mode",
+                    mode, "--epochs", str(epochs), "--json"]
+            args += (["--serving-dir", bundle_dir] if mode == "local"
+                     else ["--classifier-epochs", "0"])
+            rc, wall, logs = torchrun(args, os.path.join(tmp, f"log-{mode}"),
+                                      env)
+            check(rc == 0, f"phase 24 {mode}: torch.distributed.run exited "
+                           f"{rc}")
+            summ = rank_summaries(logs, f"phase 24 {mode}")
+            out0 = logs[0][0]
+            report = json.loads(out0[out0.index("{"):])
+            on = (list(range(epochs)) if mode == "sync" else
+                  [e for e in range(epochs) if e % DIST_PERIOD == 0]
+                  if mode == "stale" else [])
+            step_total = report["collectives"]["total"] if on else 0
+            for r, s in summ.items():
+                want = [step_total if e in on else 0 for e in range(epochs)]
+                check(s["step_bytes"] == want,
+                      f"phase 24 {mode}: rank {r} counted {s['step_bytes']}"
+                      f" bytes a step, the schedule {want}")
+                need = ["fused_gcn_layer_need_agg", "csr_aggregate"] + (
+                    ["exchange_rank_backward"] if on else [])
+                check(all(s["launches"][k] > 0 for k in need),
+                      f"phase 24 {mode}: rank {r} launched "
+                      f"{s['launches']}")
+            ep_s = [s["train_epochs_s"] for s in summ.values()]
+            sec = [s["seconds"]["training steps"] for s in summ.values()]
+            row = {"wall_s": wall, "ranks": len(summ),
+                   "step_bytes": step_total,
+                   "collectives": report["collectives"],
+                   "ms_per_epoch_max_rank": 1e3 * max(ep_s) / epochs,
+                   "collective_s_per_step_max_rank": max(
+                       x["collective_s"] for x in sec) / epochs,
+                   "staging_s_per_step_max_rank": max(
+                       x["staging_s"] for x in sec) / epochs,
+                   "phases_bytes_rank0": summ[0]["phases"],
+                   "peak_device_gb": [summ[r]["peak_device_gb"]
+                                      for r in sorted(summ)],
+                   "launches_summed": {k: sum(s["launches"][k]
+                                              for s in summ.values())
+                                       for k in summ[0]["launches"]},
+                   "timings_rank0": report["timings"]}
+            losses = np.array([summ[r]["losses"] for r in sorted(summ)])
+            losses = losses[:, :, 0].T                  # [epochs, k]
+            if mode == "local":
+                check(bool(np.isfinite(losses).all()),
+                      "phase 24 local: non-finite loss")
+                path = glob.glob(os.path.join(bundle_dir, "*.npz"))
+                check(len(path) == 1, f"phase 24 local: bundles {path}")
+                with np.load(path[0]) as z:
+                    table = torch.as_tensor(z["embeddings"])
+                err = float((table - phase5["table"]).abs().max())
+                acc, acc5 = (report["accuracy"]["test"],
+                             phase5["accuracy"]["test"])
+                diff = np.abs(losses - phase5["losses"])
+                differs = np.nonzero(diff.max(1))[0]
+                row.update(loss_max_abs_err=float(diff.max()),
+                           losses_first_diff_epoch=int(differs[0])
+                           if differs.size else None,
+                           table_max_abs=float(phase5["table"].abs().max()),
+                           table_max_abs_err=err,
+                           table_bitwise=bool(torch.equal(table,
+                                                          phase5["table"])),
+                           accuracy=report["accuracy"],
+                           phase5_accuracy=phase5["accuracy"],
+                           one_process_ms_per_epoch=phase5["ms_per_epoch"])
+                check(torch.allclose(table, phase5["table"],
+                                     **DIST_TABLE_TOL),
+                      f"phase 24 local: the table differs from phase 5's "
+                      f"by {err}")
+                check(abs(acc - acc5) <= DIST_ACC_TOL,
+                      f"phase 24 local: test accuracy {acc} against phase "
+                      f"5's {acc5}")
+            else:
+                cfg = PipelineConfig(dataset="arxiv-like", k=DIST_RANKS,
+                                     scheme="repli", mode=mode,
+                                     sync_period=DIST_PERIOD, epochs=epochs,
+                                     classifier_epochs=0,
+                                     cache_dir=cache_dir,
+                                     dataset_kwargs={"scale": ARXIV_SCALE})
+                one = run_training(cfg, device=dev, ds=ds)
+                torch.cuda.synchronize()
+                expect = exchange_collective_bytes(
+                    one.gnn, one.bundle.halo, DIST_RANKS, "sync")["total"]
+                check(step_total == expect,
+                      f"phase 24 {mode}: a step's bytes {step_total}, "
+                      f"exchange_collective_bytes {expect}")
+                diff = np.abs(losses - one.losses)
+                row.update(
+                    loss_max_abs_err=float(diff.max()),
+                    losses_bitwise=bool(np.array_equal(losses, one.losses)),
+                    one_process_ms_per_epoch=1e3
+                    * one.timings["train_epochs"] / epochs,
+                    h_pad=int(one.bundle.halo.h_pad))
+                check(bool(np.allclose(losses, one.losses,
+                                       **DIST_LOSS_TOL)),
+                      f"phase 24 {mode}: losses differ from the one-process "
+                      f"run by {float(diff.max())}")
+                if mode == "sync":
+                    kernel_row = rank_backward_row(
+                        dev, one.bundle.halo, one.batch.n_pad,
+                        one.gnn.hidden_dim)
+                    kernel_row["launches"] = row["launches_summed"][
+                        "exchange_rank_backward"]
+                del one
+                torch.cuda.empty_cache()
+            print(f"phase 24 {mode} [{smi}]: {json.dumps(row)}", flush=True)
+            rows[mode] = row
+        rc, wall, logs = torchrun(
+            [os.path.join(ROOT, "chip_smoke.py"), "--sync-steps-rank", "run",
+             *flags, "--mode", "sync"], os.path.join(tmp, "log-steps"), env)
+        check(rc == 0, f"phase 24 repeat: torch.distributed.run exited {rc}")
+        summ = rank_summaries(logs, "phase 24 repeat")
+        step_total = rows["sync"]["step_bytes"]
+        for r, s in summ.items():
+            check(s["bitwise"], f"phase 24: rank {r}'s two sync steps from "
+                                f"one state differ")
+            check(s["step_bytes"] == [step_total] * 2,
+                  f"phase 24 repeat: rank {r} counted {s['step_bytes']}")
+        rows["sync_repeat"] = {
+            "wall_s": wall, "bitwise": True,
+            "step_s_max_rank": max(max(s["step_s"]) for s in summ.values()),
+            "collective_s_per_step_max_rank": max(
+                s["seconds"]["collective_s"] for s in summ.values()) / 2,
+            "staging_s_per_step_max_rank": max(
+                s["seconds"]["staging_s"] for s in summ.values()) / 2}
+        print(f"phase 24 sync repeat [{smi}]: "
+              f"{json.dumps(rows['sync_repeat'])}", flush=True)
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = own_cache
+        autotune.clear_memory_cache()
+    rows["phase_s"] = time.perf_counter() - t0
+    print(f"phase 24: {rows['phase_s']:.1f} s wall (8 ranks sharing one "
+          f"card through gloo, not a cluster of 8 cards) [{smi}]",
+          flush=True)
+    kernel = {"name": "csr_aggregate_rank_exchange_backward",
+              "route": "cuda",
+              "source": "src/repro_torch/csrc/csr_aggregate.cu",
+              "replaces": "src/repro/kernels/csr_aggregate.py:148",
+              **kernel_row}
+    return rows, kernel
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -5362,7 +5742,6 @@ def main():
     torch.cuda.empty_cache()
     tuned, tuned_kernels = autotune_on_card(dev, main_ds, main_cache.name,
                                             phase5)
-    main_cache.cleanup()
 
     # -- 18. compiled steps against the eager loop ---------------------------
     torch.cuda.empty_cache()
@@ -5415,7 +5794,21 @@ def main():
                 "serve"]["kernel_d_launches"]
             k["launches_phase23_phi3v"] = frontends[VLM_ARCH]["serve"][
                 "kernel_d_launches"]
+
+    # -- 24. one process per partition: local, sync and stale(4) -------------
+    torch.cuda.empty_cache()
+    dist_rows, dist_kernel = distributed_on_card(dev, smi, main_ds,
+                                                 main_cache.name, phase5)
+    main_cache.cleanup()
+    for k in kernels:
+        if k["name"] in ("fused_gcn_layer_need_agg",
+                         "csr_aggregate_transpose"):
+            k["launches_phase24_local_ranks"] = dist_rows["local"][
+                "launches_summed"]["fused_gcn_layer_need_agg"
+                                   if k["name"].startswith("fused")
+                                   else "csr_aggregate"]
     kernels.append(exchange_kernel)
+    kernels.append(dist_kernel)
     kernels.append(surface_kernel)
     kernels.extend(tuned_kernels)
     print("summary: " + json.dumps({
@@ -5444,7 +5837,8 @@ def main():
         "phase20": {k: v for k, v in moe.items() if k != "kernel_d"},
         "phase21": {k: v for k, v in ssm.items() if k != "kernel_d"},
         "phase22": deepseek,
-        "phase23": {k: v for k, v in frontends.items() if k != "kernel_d"}}))
+        "phase23": {k: v for k, v in frontends.items() if k != "kernel_d"},
+        "phase24": dist_rows}))
 
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
@@ -5456,4 +5850,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sync-steps-rank"]:
+        sys.exit(sync_steps_rank(sys.argv[2:]))
     sys.exit(main())

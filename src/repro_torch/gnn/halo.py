@@ -20,6 +20,11 @@ through the stacked tensors: the gradient of ``L_q`` reaches partition
 ``p``'s parameters through the rows ``p`` sent ``q``. The update is the
 stacked AdamW, clipped and counted per partition.
 
+Under a ``torch.distributed`` mesh (``mesh=``) each rank holds one
+partition and the exchange is a counted all-gather, its gradient a
+reduce-scatter (:mod:`repro_torch.gnn.distributed`); the steps are the
+same functions, over the rank's one partition.
+
 The step before a stale run's first exchange is local mode's own
 (:func:`~repro_torch.gnn.train.stacked_train_step`), so stale(0) is local
 training bit for bit. Both trainers return what ``train_local`` returns,
@@ -50,6 +55,7 @@ from repro_torch.core import HaloExchangeSpec, NodeDataset, PartitionBatch
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.graphs import CapturedStep, new_pool
 from repro_torch.kernels import exchange as _exchange
+from repro_torch.launch import collectives
 from repro_torch.optim import OptState, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -70,9 +76,7 @@ __all__ = ["REFRESH_MODES", "make_halo_forward", "make_sync_forward",
 
 REFRESH_MODES = ("exchange", "cached", "frozen")
 
-#: The reference's ``launch.hlo_analysis.COLLECTIVE_OPS``.
-_COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
-                   "all-to-all", "collective-permute")
+_COLLECTIVE_OPS = collectives.COLLECTIVE_OPS
 
 Caches = Tuple[torch.Tensor, ...]
 Gens = Sequence[Optional[torch.Generator]]
@@ -105,10 +109,10 @@ def make_halo_forward(cfg: GNNConfig, plan: _exchange.ExchangePlan
         for i, lp in enumerate(layers):
             last = i == len(layers) - 1
             if refresh_mode == "exchange":
-                h = _exchange.exchange(h, plan)
+                h = plan.exchange(h)
                 new_caches.append(h.detach())
             elif refresh_mode == "cached":
-                h = _exchange.refresh_from(h, caches[i], plan)
+                h = plan.refresh(h, caches[i])
             rows = h.unbind(0)
             outs = []
             for p in range(k):
@@ -239,30 +243,50 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                 lr: float, seed: int, schedule: Sequence[int],
                 integrate: str, device: DeviceLike, params: Optional[Params],
                 tensors: Optional[PartitionTensors],
-                capture: bool = True) -> LocalTraining:
+                capture: bool = True, mesh=None) -> LocalTraining:
     """The epoch loop of both modes (``mode`` "sync" or "stale"): exchange
     steps on the epochs of ``schedule`` (every epoch: sync), local steps
     before the first, cached steps after it. Traced epochs are
     ``train.epoch`` spans (stale's with the step's ``kind``); stale counts
-    its exchange epochs in ``train.stale_exchanges``."""
+    its exchange epochs in ``train.stale_exchanges``. Under ``mesh`` this
+    rank trains partition ``rank`` with :class:`~repro_torch.gnn.
+    distributed.HaloAllGather` as its exchange, eagerly, each step's
+    collectives counted."""
     device = resolve_device(device)
     k = batch.k
     if halo.send_rows.shape[0] != k:
         raise ValueError(f"halo spec is for k={halo.send_rows.shape[0]}, "
                          f"the batch has k={k}")
+    sh = None
+    if mesh is not None:
+        from . import distributed
+        distributed.check_halo_mesh(mesh, k)
+        if capture:
+            distributed.refuse_capture(mode)
+        sh = distributed.shard(mesh, k, device)
     if params is None:
         params = init_partition_models(cfg, ds.num_classes, k,
                                        torch.Generator().manual_seed(seed),
                                        device)
-    if tensors is None:
-        tensors = gather_partition_tensors(ds, batch, device)
-    plan = _exchange.plan(halo, batch.n_pad, device)
+    gens = dropout_generators(seed, k, device)
+    if sh is None:
+        if tensors is None:
+            tensors = gather_partition_tensors(ds, batch, device)
+        plan = _exchange.plan(halo, batch.n_pad, device)
+    else:
+        params = distributed.slice_params(params, sh)
+        gens = gens[sh.lo:sh.hi]
+        if tensors is None:
+            tensors = gather_partition_tensors(ds, batch, device,
+                                               only=slice(sh.lo, sh.hi))
+        plan = distributed.HaloAllGather(halo, sh, batch.n_pad, device)
+        counter = distributed.StepCounter(sh)
     steps = make_stale_train_steps(cfg, plan, ds.multilabel, lr)
     if capture:
         steps = capture_steps(steps, device)
-    gens = dropout_generators(seed, k, device)
     opt = adamw_init(params, stacked=True)
-    losses = torch.empty((epochs, k), dtype=torch.float32, device=device)
+    losses = torch.empty((epochs, tensors.k), dtype=torch.float32,
+                         device=device)
     exchanges = np.zeros(epochs, dtype=np.int64)
     on = set(schedule)
     caches = None
@@ -279,6 +303,11 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                                                caches)
         return loss
 
+    def run(kind):
+        if sh is None:
+            return run_epoch(kind)
+        return counter.step(lambda: run_epoch(kind))
+
     epochs_ctr = obs.counter("train.epochs")
     exchanges_ctr = obs.counter("train.stale_exchanges")
     traced = obs.enabled()
@@ -291,10 +320,10 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
         if traced:
             attrs = {"kind": kind} if mode == "stale" else {}
             with obs.span("train.epoch", epoch=e, mode=mode, **attrs) as sp:
-                losses[e] = run_epoch(kind)
+                losses[e] = run(kind)
                 finish_epoch_span(sp, losses[e])
         else:
-            losses[e] = run_epoch(kind)
+            losses[e] = run(kind)
         if mode == "stale" and kind == "exchange":
             exchanges_ctr.inc()
         epochs_ctr.inc()
@@ -313,8 +342,16 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
     else:
         def emb_fn(ps):
             return compute_embeddings(ps, cfg, tensors)
-    params, emb = apply_integration(params, integrate, emb_fn, k)
-    table = pool_embeddings(emb, tensors, ds.graph.n)
+    if sh is None:
+        params, emb = apply_integration(params, integrate, emb_fn, k)
+        table = pool_embeddings(emb, tensors, ds.graph.n)
+    else:
+        def sharded_emb_fn(ps):
+            with collectives.phase("embedding gather"):
+                return emb_fn(ps)
+        params, emb = distributed.integrate(params, integrate,
+                                            sharded_emb_fn, sh)
+        table = distributed.pooled_table(emb, batch, ds.graph.n, sh)
     synchronize(device)
     return LocalTraining(params=params, embeddings=table,
                          losses=losses.cpu().numpy(),
@@ -322,7 +359,9 @@ def _train_halo(mode: str, ds: NodeDataset, batch: PartitionBatch,
                                   "embed": time.perf_counter() - t1},
                          exchanges=exchanges,
                          compiles={kind: getattr(fn, "compiles", 0)
-                                   for kind, fn in steps.items()})
+                                   for kind, fn in steps.items()},
+                         collectives=None if sh is None
+                         else counter.summary())
 
 
 def train_sync(ds: NodeDataset, batch: PartitionBatch,
@@ -330,13 +369,15 @@ def train_sync(ds: NodeDataset, batch: PartitionBatch,
                lr: float = 1e-2, seed: int = 0, integrate: str = "none",
                device: DeviceLike = "cuda", params: Optional[Params] = None,
                tensors: Optional[PartitionTensors] = None,
-               capture: bool = True) -> LocalTraining:
+               capture: bool = True, mesh=None) -> LocalTraining:
     """The sync baseline: the halo rows are exchanged before every layer of
-    every step. ``params``/``tensors``/``capture`` as in
-    ``train_local``."""
+    every step. ``params``/``tensors``/``capture``/``mesh`` as in
+    ``train_local``; under a mesh its ``data`` axis must have k ranks
+    (``ValueError`` otherwise) and ``capture`` must be False
+    (``CaptureError`` otherwise)."""
     return _train_halo("sync", ds, batch, halo, cfg, epochs, lr, seed,
                        range(epochs), integrate, device, params, tensors,
-                       capture)
+                       capture, mesh)
 
 
 def train_stale(ds: NodeDataset, batch: PartitionBatch,
@@ -345,14 +386,15 @@ def train_stale(ds: NodeDataset, batch: PartitionBatch,
                 sync_period: Optional[int] = 4, integrate: str = "none",
                 device: DeviceLike = "cuda", params: Optional[Params] = None,
                 tensors: Optional[PartitionTensors] = None,
-                capture: bool = True) -> LocalTraining:
+                capture: bool = True, mesh=None) -> LocalTraining:
     """Stale mode: the exchange runs on :func:`stale_exchange_epochs`
     only; the epochs between train against the halo rows cached at the
     last exchange, and those before the first (``sync_period`` 0 or None:
-    every epoch) are local steps."""
+    every epoch) are local steps. ``mesh`` as in :func:`train_sync`: the
+    steps between exchanges issue no collective."""
     return _train_halo("stale", ds, batch, halo, cfg, epochs, lr, seed,
                        stale_exchange_epochs(epochs, sync_period),
-                       integrate, device, params, tensors, capture)
+                       integrate, device, params, tensors, capture, mesh)
 
 
 def exchange_collective_bytes(cfg: GNNConfig,

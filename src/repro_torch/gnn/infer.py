@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,15 +49,17 @@ class PartitionTensors:
 
 def gather_partition_tensors(ds: NodeDataset, batch: PartitionBatch,
                              device: DeviceLike = "cuda",
-                             only: Optional[int] = None
+                             only: Union[int, slice, None] = None
                              ) -> PartitionTensors:
     """Gather each partition's node features, labels and training mask,
     move the batch to ``device`` and build every partition's CSR there.
 
     ``only=p`` gathers partition ``p`` alone (``k`` = 1), for training one
-    partition at a time."""
+    partition at a time; ``only=slice(lo, hi)`` partitions ``lo..hi-1``
+    (one rank's shard)."""
     device = resolve_device(device)
-    sel = slice(None) if only is None else slice(only, only + 1)
+    sel = (slice(None) if only is None else only
+           if isinstance(only, slice) else slice(only, only + 1))
     node_ids, node_mask = batch.node_ids[sel], batch.node_mask[sel]
     owned_mask = batch.owned_mask[sel]
     ids = np.maximum(node_ids, 0)

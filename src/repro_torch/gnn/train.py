@@ -85,6 +85,9 @@ class LocalTraining(NamedTuple):
                                              # each step (sync and stale)
     compiles: Optional[Dict[str, int]] = None   # step kind -> signatures
                                                 # compiled (captured)
+    collectives: Optional[Dict] = None      # under a mesh: this rank's
+                                            # counted collectives
+                                            # (StepCounter.summary)
 
 
 def dropout_generators(seed: int, k: int, device: torch.device
@@ -178,7 +181,7 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
                 integrate: str = "none", sequential: bool = False,
                 device: DeviceLike = "cuda", params: Optional[Params] = None,
                 tensors: Optional[PartitionTensors] = None,
-                capture: bool = True) -> LocalTraining:
+                capture: bool = True, mesh=None) -> LocalTraining:
     """The paper's local training; returns the trained (and integrated)
     stacked parameters, the pooled ``[n, E]`` table and every step's loss.
 
@@ -186,7 +189,14 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
     ``seed``; ``tensors`` (the vmapped path) to the batch gathered onto
     ``device``. ``sequential=True`` gathers one partition at a time
     instead; the trained parameters are the same. ``capture=False`` runs
-    the eager loop (see the module docstring)."""
+    the eager loop (see the module docstring).
+
+    With ``mesh`` (:mod:`repro_torch.launch.mesh`), this rank trains its
+    shard of the partitions (:mod:`repro_torch.gnn.distributed`): the
+    given or seeded parameters of all k are sliced to it, ``tensors`` are
+    its partitions' (gathered here by default), the losses are its own
+    ``[epochs, k/D]``, and the result carries the counted collectives
+    (``collectives``); the parameters and table are every rank's."""
     device = resolve_device(device)
     k = batch.k
     if params is None:
@@ -194,7 +204,21 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
                                        torch.Generator().manual_seed(seed),
                                        device)
     gens = dropout_generators(seed, k, device)
-    losses = torch.empty((epochs, k), dtype=torch.float32, device=device)
+    sh = None
+    if mesh is not None:
+        if sequential:
+            raise ValueError("the sequential (low-memory) path is "
+                             "unsharded: pass mesh=None")
+        from . import distributed
+        sh = distributed.shard(mesh, k, device)
+        params = distributed.slice_params(params, sh)
+        gens = gens[sh.lo:sh.hi]
+        if tensors is None:
+            tensors = gather_partition_tensors(ds, batch, device,
+                                               only=slice(sh.lo, sh.hi))
+        counter = distributed.StepCounter(sh)
+    losses = torch.empty((epochs, k if sh is None else sh.count),
+                         dtype=torch.float32, device=device)
     epochs_ctr = obs.counter("train.epochs")
     traced = obs.enabled()
     synchronize(device)
@@ -234,8 +258,13 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
         if tensors is None:
             tensors = gather_partition_tensors(ds, batch, device)
         opt = adamw_init(params, stacked=True)
-        step = make_stacked_step(tensors, cfg, ds.multilabel, lr, device,
-                                 capture)
+        stacked = make_stacked_step(tensors, cfg, ds.multilabel, lr, device,
+                                    capture)
+
+        def step(*args):
+            if sh is None:
+                return stacked(*args)
+            return counter.step(lambda: stacked(*args))
         for e in range(epochs):
             if traced:
                 with obs.span("train.epoch", epoch=e, mode="local") as sp:
@@ -244,21 +273,27 @@ def train_local(ds: NodeDataset, batch: PartitionBatch, cfg: GNNConfig, *,
             else:
                 params, opt, losses[e] = step(params, opt, gens)
             epochs_ctr.inc()
-        compiles = {"local": getattr(step, "compiles", 0)}
+        compiles = {"local": getattr(stacked, "compiles", 0)}
 
         def emb_fn(ps):
             return compute_embeddings(ps, cfg, tensors)
         owned = tensors
     synchronize(device)
     t1 = time.perf_counter()
-    params, emb = apply_integration(params, integrate, emb_fn, k)
-    table = pool_embeddings(emb, owned, ds.graph.n)
+    if sh is None:
+        params, emb = apply_integration(params, integrate, emb_fn, k)
+        table = pool_embeddings(emb, owned, ds.graph.n)
+    else:
+        params, emb = distributed.integrate(params, integrate, emb_fn, sh)
+        table = distributed.pooled_table(emb, batch, ds.graph.n, sh)
     synchronize(device)
     return LocalTraining(params=params, embeddings=table,
                          losses=losses.cpu().numpy(),
                          seconds={"epochs": t1 - t0,
                                   "embed": time.perf_counter() - t1},
-                         compiles=compiles)
+                         compiles=compiles,
+                         collectives=None if sh is None
+                         else counter.summary())
 
 
 def apply_integration(params: Params, integrate: Optional[str],

@@ -93,15 +93,18 @@ def _lib():
 
 def launch(h: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor,
            weight: torch.Tensor, inv_scale: Optional[torch.Tensor] = None,
-           items: int = 0) -> torch.Tensor:
+           items: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """Run the CUDA kernel; returns ``out`` [N, F] f32.
 
     ``src``/``weight`` are the arcs sorted by destination and ``row_ptr``
     [N+1] int32 their row offsets (``ops.to_csr`` builds all three);
     ``items`` is the split's items per warp (0: :func:`split`'s rule).
+    N is ``rows``, or ``h``'s rows when None: a CSR whose arcs all end in
+    its first ``rows`` rows (``row_ptr[:rows + 1]``) writes only those.
     """
     global launches
-    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    n = h.shape[0] if rows is None else rows
+    out = torch.empty((n, h.shape[1]), dtype=torch.float32, device=h.device)
     launch_into(out, h, src, row_ptr, weight, inv_scale, items)
     launches += 1
     return out
@@ -112,16 +115,18 @@ def launch_into(out: torch.Tensor, h: torch.Tensor, src: torch.Tensor,
                 inv_scale: Optional[torch.Tensor] = None,
                 items: int = 0) -> None:
     """:func:`launch` writing into ``out`` [N, F] f32, without counting a
-    call: kernel B's wrapper fills its aggregate with it."""
+    call: kernel B's wrapper fills its aggregate with it. ``h`` may hold
+    more rows than ``out``: the arcs read it only through ``src``."""
     device = h.device
     if device.type != "cuda":
         raise ValueError(f"csr_aggregate kernel needs CUDA tensors, "
                          f"got {device}")
-    if h.dim() != 2:
-        raise ValueError(f"h must be [N, F], got shape {tuple(h.shape)}")
-    n, f = h.shape
+    if h.dim() != 2 or out.dim() != 2 or h.shape[0] < out.shape[0]:
+        raise ValueError(f"h must be [M, F] and out [N, F] with M >= N, got "
+                         f"{tuple(h.shape)} and {tuple(out.shape)}")
+    n, f = out.shape
     e = src.shape[0]
-    check_tensor("h", h, torch.float32, (n, f), device)
+    check_tensor("h", h, torch.float32, (h.shape[0], f), device)
     check_tensor("src", src, torch.int32, (e,), device)
     check_tensor("row_ptr", row_ptr, torch.int32, (n + 1,), device)
     check_tensor("weight", weight, torch.float32, (e,), device)

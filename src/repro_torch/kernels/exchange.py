@@ -25,8 +25,20 @@ and adds, in a fixed order, the sums fed back to rows that were sent to
 several partitions, with no atomics, so training stays bitwise
 repeatable on the card. On the CPU it takes kernel A's plain version.
 
-``calls`` counts exchanges (the trainers read it by epoch), ``launches``
-the backward's kernel A launches on the card (``ops.launch_counts``).
+With one process per partition (:mod:`repro_torch.gnn.distributed`),
+rank r's backward has the same shape: the gradient of its own rows, with
+the rows it received zeroed, plus what every peer fed back into each row r
+sent it. :func:`rank_plan` builds that CSR for one rank over its ``N_pad``
+rows followed by the ``k·H_pad`` slots of the reduce-scatter's output
+(its rows sum, in a fixed order, the slots a row was sent in), and
+:func:`rank_backward_sum` runs kernel A over it. The arcs of each row come
+in the order :func:`plan` gives them (the row itself, then the receiving
+partitions in order), so a rank sums exactly what the stacked backward
+sums for that partition, in the same order.
+
+``calls`` counts exchanges (the trainers read it by epoch, either kind),
+``launches`` the stacked backward's kernel A launches on the card and
+``launches_rank`` the per-rank backward's (``ops.launch_counts``).
 """
 from __future__ import annotations
 
@@ -41,12 +53,15 @@ if TYPE_CHECKING:
     from .ops import Csr
 
 __all__ = ["ExchangePlan", "ExchangeFn", "plan", "exchange",
-           "refresh_from", "backward_sum", "plain", "calls", "launches"]
+           "refresh_from", "backward_sum", "plain", "RankPlan", "rank_plan",
+           "rank_backward_sum", "calls", "launches", "launches_rank"]
 
 #: Exchanges (forward calls) made in this process.
 calls = 0
 #: Kernel A launches by the exchange's backward since the last reset.
 launches = 0
+#: Kernel A launches by a rank's backward (:func:`rank_backward_sum`).
+launches_rank = 0
 
 
 class ExchangePlan(NamedTuple):
@@ -62,6 +77,12 @@ class ExchangePlan(NamedTuple):
     @property
     def pairs(self) -> int:
         return int(self.send.shape[0])
+
+    def exchange(self, h: torch.Tensor) -> torch.Tensor:
+        return exchange(h, self)
+
+    def refresh(self, h: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+        return refresh_from(h, cache, self)
 
 
 def plan(halo, n_pad: int, device: torch.device) -> ExchangePlan:
@@ -167,3 +188,83 @@ def plain(h: torch.Tensor, pl: ExchangePlan) -> torch.Tensor:
     flat = h.reshape(-1, h.shape[-1])
     out = flat.index_put((pl.recv,), flat[pl.send])
     return out.reshape(h.shape)
+
+
+class RankPlan(NamedTuple):
+    """Rank ``rank``'s side of the exchange (one partition per rank): what
+    it sends, where what it receives lands, and its backward's CSR."""
+    send_idx: torch.Tensor     # [k·H_pad] int64 row sent in each slot (0
+                               # on a padding slot)
+    send_mask: torch.Tensor    # [k·H_pad, 1] f32, 0 on padding slots
+    recv_slot: torch.Tensor    # [R] int64 slot (q·H_pad + j) of each row
+                               # received
+    recv_row: torch.Tensor     # [R] int64 the row it overwrites
+    received: torch.Tensor     # [N_pad, 1] bool
+    csr: "Csr"                 # over N_pad + k·H_pad rows; every arc
+                               # ends in the first N_pad
+    rank: int
+    k: int
+    h_pad: int
+    n_pad: int
+
+
+def rank_plan(halo, rank: int, n_pad: int, device: torch.device) -> RankPlan:
+    """Rank ``rank``'s :class:`RankPlan` of ``halo`` (send_rows/recv_rows
+    ``[k, k, H_pad]``, -1 pads) on ``device``."""
+    from .ops import to_csr
+    send_rows = np.asarray(halo.send_rows, dtype=np.int64)
+    recv_rows = np.asarray(halo.recv_rows, dtype=np.int64)
+    k, _, h_pad = send_rows.shape
+    mine = send_rows[rank]                          # [k, H]: to peer c
+    # rows I receive: from peer q, slot j, into recv_rows[rank, q, j]
+    q, j = np.nonzero(recv_rows[rank] >= 0)
+    recv_row = recv_rows[rank, q, j]
+    if (send_rows[q, rank, j] < 0).any() or \
+            np.unique(recv_row).shape[0] != recv_row.shape[0]:
+        raise ValueError("halo spec: a receiving slot has no sending row, or "
+                         "a partition receives one row twice")
+    received = np.zeros(n_pad, dtype=bool)
+    received[recv_row] = True
+    kept = np.nonzero(~received)[0]
+    # backward arcs: kept rows from themselves; each row I sent peer p in
+    # slot j from the reduce-scatter's slot p·H + j, for the slots p reads
+    p, jj = np.nonzero(recv_rows[:, rank, :] >= 0)
+    arc_src = np.concatenate([kept, n_pad + p * h_pad + jj])
+    arc_dst = np.concatenate([kept, mine[p, jj]])
+    rows = n_pad + k * h_pad
+    csr = to_csr(torch.as_tensor(arc_src, device=device),
+                 torch.as_tensor(arc_dst, device=device),
+                 torch.ones(arc_src.shape[0], device=device), rows)
+    flat = mine.reshape(-1)
+    return RankPlan(
+        send_idx=torch.as_tensor(np.maximum(flat, 0), device=device),
+        send_mask=torch.as_tensor((flat >= 0)[:, None], dtype=torch.float32,
+                                  device=device),
+        recv_slot=torch.as_tensor(q * h_pad + j, device=device),
+        recv_row=torch.as_tensor(recv_row, device=device),
+        received=torch.as_tensor(received[:, None], device=device),
+        csr=csr, rank=int(rank), k=int(k), h_pad=int(h_pad),
+        n_pad=int(n_pad))
+
+
+def rank_backward_sum(g_and_slots: torch.Tensor, pl: RankPlan
+                      ) -> torch.Tensor:
+    """A rank's exchange backward: ``g_and_slots`` is ``[N_pad + k·H_pad,
+    F]``, the gradient of the rank's refreshed rows followed by the
+    reduce-scatter's fed-back slots; returns ``[N_pad, F]``: the rows the
+    rank received zeroed, each row it sent plus its fed-back slots, in
+    order (kernel A over ``pl.csr``; its plain version on the CPU)."""
+    global launches_rank
+    csr = pl.csr
+    if g_and_slots.shape[0] != csr.num_nodes:
+        raise ValueError(f"g_and_slots must be [{csr.num_nodes}, F], got "
+                         f"{tuple(g_and_slots.shape)}")
+    x = g_and_slots.float().contiguous()
+    if x.device.type == "cuda":
+        # every arc ends in the first N_pad rows: only they are written
+        out = _agg.launch(x, csr.src, csr.row_ptr[:pl.n_pad + 1],
+                          csr.weight, rows=pl.n_pad)
+        launches_rank += 1
+    else:
+        out = _agg.plain(x, csr.src, csr.dst, csr.weight, pl.n_pad)
+    return out

@@ -6,7 +6,9 @@ no fallback from the card to the plain version.
 
 ``flash_decode`` (kernel D) is the LM's decode attention over a KV cache.
 The sync and stale modes' halo exchange (:mod:`.exchange`) runs kernel A in
-its backward; ``exchange_backward`` counts those launches.
+its backward; ``exchange_backward`` counts those launches, and
+``exchange_rank_backward`` those of a rank's backward when one process
+holds each partition.
 
 The graph kernels read a CSR over destination rows. :func:`to_csr` builds it
 from an arc list on the arcs' own device: it checks on the device that
@@ -185,6 +187,7 @@ COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "edge_dot": (_edge_dot, "launches"),
     "flash_decode": (_flash, "launches"),
     "exchange_backward": (_exchange, "launches"),
+    "exchange_rank_backward": (_exchange, "launches_rank"),
     "exchange_calls": (_exchange, "calls"),
 }
 

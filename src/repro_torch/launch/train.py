@@ -13,6 +13,11 @@ Two workloads, selected by --workload:
   gives the CPU-scale dims; without it the config trains at full width
   and depth (qwen3_4b fits one 80 GB card at batch 4, seq 128).
 
+Under ``python -m torch.distributed.run --nproc-per-node D`` (``WORLD_SIZE``
+> 1) the gnn workload trains one shard of the k partitions per rank (the
+reference's ``train_local(mesh=...)``) and rank 0 prints the report, with
+the collective bytes each phase counted.
+
 The flags, defaults and report keys are the reference's; ``--device``
 (default ``cuda``: it raises without a GPU) takes ``cpu`` for the plain
 path. The LM report adds ``steady_tokens_per_s`` (steps 2 on, after the
@@ -32,6 +37,7 @@ import time
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import save_checkpoint
 from ..configs import get_config
@@ -39,16 +45,22 @@ from ..core import (build_partition_batch, evaluate_partition,
                     make_arxiv_like, make_proteins_like, partition_from_spec)
 from ..device import resolve_device, synchronize
 from ..gnn.model import GNNConfig
+from ..gnn.distributed import local_mesh
 from ..gnn.train import train_classifier, train_local
 from ..models.convert import params_to_reference
 from ..models.inputs import make_batch
 from ..models.lm import init_model
 from ..optim import adamw_init
+from .mesh import env_world, init_process_group_from_env, make_local_mesh
 from .steps import make_train_step
 
 
-def train_gnn(args: argparse.Namespace) -> dict:
-    device = resolve_device(args.device)
+def train_gnn(args: argparse.Namespace, device=None, mesh=None) -> dict:
+    """The GNN workload; under ``mesh`` (a ``torch.distributed`` run) each
+    rank trains its shard of the k partitions (unsharded, with a warning,
+    where the ranks do not divide k) and only rank 0 writes the
+    checkpoint."""
+    device = resolve_device(args.device if device is None else device)
     t0 = time.time()
     if args.dataset == "arxiv_like":
         ds = make_arxiv_like(n=args.nodes, seed=args.seed)
@@ -62,9 +74,10 @@ def train_gnn(args: argparse.Namespace) -> dict:
     cfg = GNNConfig(kind=args.model, feature_dim=ds.features.shape[1],
                     hidden_dim=args.hidden, embed_dim=args.hidden,
                     num_layers=3, dropout=args.dropout)
+    mesh = local_mesh(mesh, args.k)
     t2 = time.time()
     trained = train_local(ds, batch, cfg, epochs=args.epochs, lr=args.lr,
-                          seed=args.seed, device=device)
+                          seed=args.seed, device=device, mesh=mesh)
     t_train = time.time() - t2
     res, _ = train_classifier(ds, trained.embeddings, epochs=150,
                               seed=args.seed)
@@ -79,8 +92,12 @@ def train_gnn(args: argparse.Namespace) -> dict:
         "total_s": round(time.time() - t0, 1),
     }
     if args.ckpt_dir:
-        save_checkpoint(args.ckpt_dir, args.epochs, trained.params)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            save_checkpoint(args.ckpt_dir, args.epochs, trained.params)
         out["checkpoint"] = args.ckpt_dir
+    if trained.collectives is not None:
+        out["collectives"] = {p: c["total"] for p, c in
+                              trained.collectives["phases"].items()}
     return out
 
 
@@ -175,8 +192,21 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    out = train_gnn(args) if args.workload == "gnn" else train_lm(args)
-    print(json.dumps(out, indent=1))
+    if env_world() <= 1:
+        out = train_gnn(args) if args.workload == "gnn" else train_lm(args)
+        print(json.dumps(out, indent=1))
+        return
+    if args.workload != "gnn":
+        raise ValueError("under torch.distributed.run only the gnn workload "
+                         "runs (one shard of the partitions per rank); the "
+                         "lm workload runs in one process")
+    device, _ = init_process_group_from_env(args.device)
+    try:
+        out = train_gnn(args, device=device, mesh=make_local_mesh())
+        if dist.get_rank() == 0:
+            print(json.dumps(out, indent=1))
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

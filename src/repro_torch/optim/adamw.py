@@ -6,7 +6,11 @@ tree. A *stacked* state (``adamw_init(params, stacked=True)``) treats axis
 0 of every leaf as k independent parameter trees, as the reference's
 ``jax.vmap(adamw_init)`` does for the k partition models: ``step`` is
 ``[k]`` and each partition's gradients are clipped by that partition's own
-global norm, never by the norm of the whole stack.
+global norm, never by the norm of the whole stack. Each partition's norm
+is reduced alone, as an unstacked tree's is: a row reduction over a
+``[k, M]`` stack takes its summation order from k on the card, and a
+partition must train alike in a stack of any size (one process per
+partition holds a stack of one).
 
 :func:`adamw_update_` writes into the given trees (the LM's train step,
 whose state would not fit twice on the card); :func:`adamw_update`
@@ -44,6 +48,11 @@ def _per_row(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
+def _square_norm(leaves) -> torch.Tensor:
+    """The squared global norm of one tree's gradient leaves (f32)."""
+    return sum(g.float().square().flatten(0).sum(-1) for g in leaves)
+
+
 @torch.no_grad()
 def adamw_update(grads: Tree, state: OptState, params: Tree,
                  lr: Union[float, torch.Tensor],
@@ -73,8 +82,11 @@ def adamw_update_(grads: Tree, state: OptState, params: Tree,
     step = state.step
     g_leaves = tree_leaves(grads)
     if clip_norm is not None:
-        dims = 1 if step.dim() else 0        # stacked: reduce all but axis 0
-        sq = sum(g.float().square().flatten(dims).sum(-1) for g in g_leaves)
+        if step.dim():                       # stacked: each partition alone
+            sq = torch.stack([_square_norm([g[i] for g in g_leaves])
+                              for i in range(step.shape[0])])
+        else:
+            sq = _square_norm(g_leaves)
         scale = torch.clamp(clip_norm / (sq.sqrt() + 1e-9), max=1.0)
     t = step.float()
     # the Python scalar base rounds to b1's f32 as a 0-d tensor would, and

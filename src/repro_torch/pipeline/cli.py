@@ -34,6 +34,15 @@ candidate is the plain versions, and nothing is measured. There is no
 ``--use-kernel``: on the card the layers always run the kernels. The flags
 are the reference CLI's that the ported modes read; ``--device`` defaults
 to ``cuda``.
+
+Started by ``python -m torch.distributed.run --nproc-per-node k`` (so that
+``WORLD_SIZE`` > 1), ``run`` joins the process group
+(:func:`repro_torch.launch.mesh.init_process_group_from_env`, which picks
+gloo or nccl and the rank's card) and trains one shard of the partitions
+per rank: local mode shards the k partitions over the ranks, sync and
+stale need k ranks. Rank 0 alone prints the report and writes the files;
+every rank prints one ``rank summary:`` JSON line to stderr. Without
+``WORLD_SIZE`` it runs in one process, as ever.
 """
 from __future__ import annotations
 
@@ -199,22 +208,18 @@ def _cmd_partitioners(args: argparse.Namespace) -> int:
     return 0
 
 
-def _cmd_run(args: argparse.Namespace) -> int:
-    from repro_torch import obs
-
-    from .pipeline import PipelineConfig, PipelineReport, run_training
-
-    logging.basicConfig(level=logging.INFO,
-                        format="%(levelname)s %(name)s: %(message)s")
-    if args.trace:
-        obs.enable()
+def config_from_args(args: argparse.Namespace):
+    """The :class:`~repro_torch.pipeline.pipeline.PipelineConfig` of a
+    parsed ``run`` command line."""
+    from .pipeline import PipelineConfig
     dataset_kwargs = {}
     if args.nodes is not None:
         dataset_kwargs["n"] = args.nodes
     if args.dataset_scale is not None:
         dataset_kwargs["scale"] = args.dataset_scale
-    cfg = PipelineConfig(
-        dataset=args.dataset, method=args.method, k=args.k, seed=args.seed, scheme=args.scheme,
+    return PipelineConfig(
+        dataset=args.dataset, method=args.method, k=args.k, seed=args.seed,
+        scheme=args.scheme,
         mode=args.mode, sync_period=args.sync_period,
         integrate=args.integrate, model=args.model,
         hidden_dim=args.hidden_dim, embed_dim=args.embed_dim,
@@ -227,7 +232,66 @@ def _cmd_run(args: argparse.Namespace) -> int:
         torch_profile_dir=args.torch_profile,
         kernel_autotune=args.kernel_autotune,
         dataset_kwargs=dataset_kwargs)
-    result = run_training(cfg, device=args.device)
+
+
+def rank_summary(result, device, backend: str) -> dict:
+    """One rank's line of a distributed run: its counted collectives by
+    step and phase, its kernels' launches, its losses and epoch time, and
+    its peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    counted = result.counted or {}
+    return {
+        "rank": dist.get_rank(), "world": dist.get_world_size(),
+        "backend": backend, "device": str(device),
+        "partitions": counted.get("partitions"),
+        "step_bytes": [s["total"] for s in counted.get("steps", [])],
+        "phases": {p: c["total"] for p, c in
+                   counted.get("phases", {}).items()},
+        "seconds": counted.get("seconds"),
+        "launches": ops.launch_counts(),
+        "losses": result.losses.tolist(),
+        "train_epochs_s": result.timings.get("train_epochs"),
+        "peak_device_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None)}
+
+
+def _cmd_run(args: argparse.Namespace) -> int:
+    from repro_torch.launch.mesh import env_world, init_process_group_from_env
+    if env_world() <= 1:
+        return _run(args, args.device)
+    import torch.distributed as dist
+    device, backend = init_process_group_from_env(args.device)
+    try:
+        return _run(args, device, backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, device, backend: Optional[str] = None
+         ) -> int:
+    """``run`` in this process; under a process group (``backend``) every
+    rank trains its shard, rank 0 alone writes the trace and prints the
+    report, and every rank prints :func:`rank_summary` to stderr."""
+    from repro_torch import obs
+
+    from .pipeline import PipelineReport, run_training
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
+    rank0 = backend is None or _rank() == 0
+    if args.trace:
+        obs.enable()
+    cfg = config_from_args(args)
+    result = run_training(cfg, device=device)
+    if backend is not None:
+        print("rank summary: " + json.dumps(rank_summary(result, device,
+                                                         backend)),
+              file=sys.stderr, flush=True)
+    if not rank0:
+        return 0
     report = PipelineReport.of(cfg, result)
     if args.trace:
         path = obs.export_trace(args.trace)
@@ -242,6 +306,11 @@ def _cmd_run(args: argparse.Namespace) -> int:
     else:
         print(report.summary())
     return 0
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint import save_checkpoint
@@ -57,7 +58,8 @@ from repro_torch.gnn.infer import (PartitionTensors, compute_embeddings,
                                    gather_partition_tensors,
                                    init_partition_models, pool_embeddings)
 from repro_torch.gnn.model import GNNConfig, init_mlp
-from repro_torch.gnn.halo import (exchange_collective_bytes, train_stale,
+from repro_torch.gnn.halo import (exchange_collective_bytes,
+                                  stale_exchange_epochs, train_stale,
                                   train_sync)
 from repro_torch.gnn.train import train_classifier, train_local
 from repro_torch.kernels import ops
@@ -138,6 +140,8 @@ class PipelineResult:
     profile_path: Optional[str] = None    # the torch.profiler trace
     kernel: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)       # "f<width>" -> KernelConfig.as_dict()
+    counted: Optional[Dict[str, Any]] = None   # under a mesh: this rank's
+                                               # counted collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,8 +322,10 @@ def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
     with stage.span("partition_stage", method=spec.canonical(), k=cfg.k,
                     scheme=scheme) as psp:
         if cfg.cache_dir:
-            bundle = PartitionArtifactStore(cfg.cache_dir).load_or_compute(
-                ds.graph, spec, cfg.k, cfg.seed, scheme, with_halo=with_halo)
+            bundle = _rank0_first(lambda: PartitionArtifactStore(
+                cfg.cache_dir).load_or_compute(ds.graph, spec, cfg.k,
+                                               cfg.seed, scheme,
+                                               with_halo=with_halo))
         else:
             bundle = compute_bundle(ds.graph, spec, cfg.k, cfg.seed, scheme,
                                     with_halo=with_halo)
@@ -332,6 +338,50 @@ def _partitioned(cfg: PipelineConfig, spec: PartitionerSpec,
                     hidden_dim=cfg.hidden_dim, embed_dim=cfg.embed_dim,
                     num_layers=cfg.num_layers, dropout=cfg.dropout)
     return ds, bundle, report, gnn
+
+
+def _is_rank0() -> bool:
+    """This process writes the run's files: the only process, or rank 0
+    of a process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _rank0_first(fn: Callable[[], Any]) -> Any:
+    """``fn()`` on rank 0, then (after a barrier) on the other ranks, so
+    that they read what rank 0 wrote and no two ranks write one path; just
+    ``fn()`` without a process group."""
+    if not dist.is_initialized():
+        return fn()
+    if dist.get_rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
+
+
+def _resolve_mesh(cfg: PipelineConfig, mesh, k: int):
+    """The mesh the train stage runs under, the reference's
+    ``_resolve_mesh``: the given one, or under an initialized process
+    group :func:`~repro_torch.launch.mesh.make_local_mesh`'s; None without
+    either. Sync and stale take it as it is (their trainers check that
+    its ``data`` axis has k ranks); local mode runs unsharded, with a
+    warning, where ``data`` does not divide k, and on the low-memory
+    path."""
+    from repro_torch.gnn.distributed import local_mesh
+    from repro_torch.launch.mesh import data_size, make_local_mesh
+    if mesh is None:
+        if not dist.is_initialized():
+            return None
+        mesh = make_local_mesh()
+    if cfg.mode in HALO_MODES:
+        return mesh
+    data = data_size(mesh)
+    if cfg.low_memory:
+        log.warning("the low-memory path is unsharded: running k=%d on "
+                    "every one of the %d ranks", k, data)
+        return None
+    return local_mesh(mesh, k)
 
 
 def _kernel_configs(cfg: PipelineConfig, gnn: GNNConfig,
@@ -384,7 +434,7 @@ def _finish(cfg: PipelineConfig, stage: _Stages,
     result.predictions = stage("classify", lambda: classify(
         result.classifier, result.embeddings).argmax(-1).cpu().numpy()
         .astype(np.int32))
-    if cfg.serving_dir:
+    if cfg.serving_dir and _is_rank0():
         result.serving_path = stage("export", lambda: export_from_pipeline(
             cfg.serving_dir, result, result.spec))
     result.timings = stage.timings
@@ -394,33 +444,47 @@ def _finish(cfg: PipelineConfig, stage: _Stages,
 def run_training(cfg: PipelineConfig, device: DeviceLike = "cuda",
                  ds: Optional[NodeDataset] = None,
                  params: Optional[Dict[str, Any]] = None,
-                 classifier: Optional[Dict[str, torch.Tensor]] = None
-                 ) -> PipelineResult:
+                 classifier: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None) -> PipelineResult:
     """The paper's pipeline: train the k GNN replicas in ``cfg.mode``, pool
     their embeddings, train the classifier, and export the trained bundle.
 
     ``params``/``classifier`` are the initial parameters; they default to
     the seeded ones :func:`run_inference` uses. The offline answer key is
     the trained classifier's blocked ``classify`` of the pooled table.
-    ``low_memory`` applies to local mode only."""
+    ``low_memory`` applies to local mode only.
+
+    Under an initialized ``torch.distributed`` process group (or with
+    ``mesh``), each rank trains its shard of the partitions
+    (:func:`_resolve_mesh`; sync and stale eagerly), the report's
+    ``collectives`` are what this rank counted (a step that moved other
+    bytes than :func:`exchange_collective_bytes` raises), ``tensors`` is
+    None and ``losses`` are this rank's partitions'. Only rank 0 writes
+    files (the partition cache, the serving bundle, the checkpoint, the
+    profile); the others read the cache after it."""
     spec = _check(cfg)
     if cfg.serving_dir and cfg.classifier_epochs <= 0:
         raise ValueError("serving_dir requires the classifier stage "
                          "(classifier_epochs > 0)")
     stage = _Stages(resolve_device(device))
     with stage.span("total", dataset=cfg.dataset, mode=cfg.mode, k=cfg.k):
-        return _train(cfg, spec, stage, ds, params, classifier)
+        return _train(cfg, spec, stage, ds, params, classifier, mesh)
 
 
 def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
            ds: Optional[NodeDataset], params: Optional[Dict[str, Any]],
-           classifier: Optional[Dict[str, torch.Tensor]]) -> PipelineResult:
+           classifier: Optional[Dict[str, torch.Tensor]],
+           mesh=None) -> PipelineResult:
     device = stage.device
+    if dist.is_initialized() and device.type == "cuda":
+        from repro_torch.kernels import _build
+        _rank0_first(_build.build_all)    # the ranks load one build
     ds, bundle, report, gnn = _partitioned(cfg, spec, stage, ds)
     batch = bundle.batch
+    mesh = _resolve_mesh(cfg, mesh, batch.k)
     low_memory = cfg.low_memory and cfg.mode == "local"
     tensors = None
-    if not low_memory:
+    if not low_memory and mesh is None:
         tensors = stage("to_device",
                         lambda: gather_partition_tensors(ds, batch, device))
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -430,13 +494,17 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
     if classifier is None:
         classifier = init_mlp(gen, cfg.embed_dim, cfg.classifier_hidden,
                               ds.num_classes, device)
-    kernel = _kernel_configs(cfg, gnn, batch, tensors, stage)
-    profiler = obs.profiler_session(cfg.torch_profile_dir)
+    kernel = _rank0_first(lambda: _kernel_configs(cfg, gnn, batch, tensors,
+                                                  stage))
+    profiler = obs.profiler_session(cfg.torch_profile_dir if _is_rank0()
+                                    else None)
 
     def train():
         common = dict(epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
                       integrate=cfg.integrate, device=device, params=params,
-                      tensors=tensors)
+                      tensors=tensors, mesh=mesh)
+        if mesh is not None and cfg.mode in HALO_MODES:
+            common["capture"] = False       # a step that holds collectives
         with profiler:
             if cfg.mode == "sync":
                 return train_sync(ds, batch, bundle.halo, gnn, **common)
@@ -452,6 +520,13 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
     collectives = exchange_collective_bytes(gnn, bundle.halo, batch.k,
                                             cfg.mode, cfg.epochs,
                                             cfg.sync_period)
+    if trained.collectives is not None:
+        from repro_torch.gnn import distributed
+        schedule = (range(cfg.epochs) if cfg.mode == "sync"
+                    else stale_exchange_epochs(cfg.epochs, cfg.sync_period)
+                    if cfg.mode == "stale" else [])
+        collectives = distributed.collective_report(
+            trained.collectives, collectives, cfg.mode, schedule)
     # the report's byte count, in the registry too: a trace is
     # self-contained
     obs.gauge("train.collective_bytes_per_step").set(collectives["total"])
@@ -471,8 +546,9 @@ def _train(cfg: PipelineConfig, spec: PartitionerSpec, stage: _Stages,
         timings={}, accuracy=accuracy, losses=trained.losses,
         exchanges=trained.exchanges, compiles=trained.compiles or {},
         collectives=collectives,
-        profile_path=profiler.path, kernel=kernel)
-    if cfg.checkpoint_dir:
+        profile_path=profiler.path, kernel=kernel,
+        counted=trained.collectives)
+    if cfg.checkpoint_dir and _is_rank0():
         result.checkpoint_path = stage("checkpoint", lambda: save_checkpoint(
             cfg.checkpoint_dir, cfg.epochs, trained.params))
         log.info("saved model checkpoint: %s", result.checkpoint_path)

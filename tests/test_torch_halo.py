@@ -7,7 +7,14 @@ parameters, the per-epoch losses, the parameters after 1 and 5 epochs and
 the pooled table of sync and of stale(2) training, GCN and SAGE, and the
 ``collective_bytes`` report of the compiled steps at 2 and 3 layers. The
 graph is ``tests/test_stale_mode.py``'s (arxiv-like at 400 nodes,
-Leiden-Fusion k = 4, Repli), dropout 0.
+Leiden-Fusion k = 4, Repli), dropout 0. The same run adds the reference's
+unsharded local training (3 epochs).
+
+The port's process-per-partition runs (``torch.distributed``, gloo, one
+partition per rank) start their 4 ranks once, in a module fixture, each a
+subprocess with its own ``env=`` that meets the others through a
+``FileStore`` under the test's temporary directory, and are held against
+the port's one-process runs and against this file's reference results.
 
 Tolerances (abs + rel):
 * parameters after one step: 1e-5, the check that catches a missing
@@ -16,13 +23,18 @@ Tolerances (abs + rel):
   local-mode parity tests (sums run in another order and the difference
   compounds through every AdamW step);
 * the halo plan, the collective-byte report and the stale schedule: equal;
-* the port against itself (stale(1) and sync, stale(0) and local): bitwise.
+* the port against itself (stale(1) and sync, stale(0) and local): bitwise;
+* the distributed runs against the one-process ones: bitwise, but for
+  ``model_avg``, whose all-reduce sums in gloo's order (1e-6); against the
+  reference as above, their counted bytes equal to its HLO count.
 """
+import functools
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import numpy as np
@@ -52,6 +64,7 @@ from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 K, EPOCHS, LR, PERIOD = 4, 5, 1e-2, 2
+LOCAL_EPOCHS = 3
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
 TABLE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -66,15 +79,17 @@ REFERENCE = textwrap.dedent("""
     from repro.core import (make_arxiv_like, leiden_fusion,
                             build_partition_batch, build_halo_exchange)
     from repro.gnn import (GNNConfig, stale_bytes_per_epoch,
-                           stale_exchange_epochs, train_stale, train_sync)
+                           stale_exchange_epochs, train_local, train_stale,
+                           train_sync)
     from repro.gnn.train import (_stale_cache_shapes, _tensors_dict,
                                  gather_partition_tensors,
                                  init_partition_models,
+                                 make_local_train_step,
                                  make_stale_train_steps, make_sync_train_step)
     from repro.launch.hlo_analysis import collective_bytes
     from repro.optim import adamw_init
 
-    K, EPOCHS, LR, PERIOD = %d, %d, %r, %d
+    K, EPOCHS, LR, PERIOD, LOCAL_EPOCHS = %d, %d, %r, %d, %d
     ds = make_arxiv_like(n=400, feature_dim=8, num_classes=4, seed=3)
     labels = leiden_fusion(ds.graph, K, alpha=0.3)
     batch = build_partition_batch(ds.graph, labels, scheme="repli")
@@ -166,9 +181,28 @@ REFERENCE = textwrap.dedent("""
                     assert np.array_equal(a, b), tag
                 out[f"{tag}_losses"] = np.stack(losses)
                 out[f"{tag}_table"] = np.asarray(table)
+    # the unsharded local run (the reference's sharded one fails under this
+    # jax), driven step by step for its losses
+    cfg = GNNConfig(kind="gcn", feature_dim=8, hidden_dim=16, embed_dim=16,
+                    num_layers=2, dropout=0.0)
+    p_end, table = train_local(ds, batch, cfg, epochs=LOCAL_EPOCHS, lr=LR,
+                               seed=0)
+    key = jax.random.PRNGKey(0)
+    p = init_partition_models(key, cfg, ds.num_classes, K)
+    o, losses = jax.vmap(adamw_init)(p), []
+    step = jax.jit(make_local_train_step(cfg, False, LR))
+    for e in range(LOCAL_EPOCHS):
+        p, o, loss = step(p, o, tensors,
+                          jax.random.split(jax.random.fold_in(key, e), K))
+        losses.append(np.asarray(loss))
+    for i, (a, b) in enumerate(zip(leaves(p), leaves(p_end))):
+        assert np.array_equal(a, b), "local"
+        out[f"gcn_2_local_p_{i}"] = a
+    out["gcn_2_local_losses"] = np.stack(losses)
+    out["gcn_2_local_table"] = np.asarray(table)
     out["dicts"] = np.array(json.dumps(dicts))
     np.savez(sys.argv[1], **out)
-""") % (K, EPOCHS, LR, PERIOD)
+""") % (K, EPOCHS, LR, PERIOD, LOCAL_EPOCHS)
 
 
 @pytest.fixture(scope="module")
@@ -308,6 +342,245 @@ def test_collective_bytes_zero_without_exchange(graph, mode, period):
                                      period)
     assert mine["total"] == mine["per_epoch_avg"] == 0
     assert mine.get("n_exchange_epochs", 0) == 0
+
+
+# -- one process per partition (torch.distributed, gloo) ---------------------
+# Each rank runs every distributed case once, from the reference's initial
+# parameters, and writes what it got to an .npz: local (3 epochs), sync and
+# stale(2) (5 epochs, as the reference's runs), model_avg and ensemble
+# (local, 3 epochs), and sync with dropout 0.3 (3 epochs).
+RANKS = textwrap.dedent("""
+    import json, os, sys
+    import numpy as np, torch
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from repro_torch import core
+    from repro_torch.gnn.halo import train_stale, train_sync
+    from repro_torch.gnn.infer import init_partition_models, params_from_jax
+    from repro_torch.gnn.model import GNNConfig
+    from repro_torch.gnn.train import train_local
+    from repro_torch.launch.mesh import (init_process_group_from_env,
+                                         make_local_mesh)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out_dir = sys.argv[1]
+    K, EPOCHS, LR, PERIOD, LOCAL_EPOCHS = %d, %d, %r, %d, %d
+    init_process_group_from_env(
+        "cpu", init_method="file://" + os.path.join(out_dir, "store"),
+        timeout_s=60)
+    try:
+        mesh = make_local_mesh()
+        ds = core.make_arxiv_like(n=400, feature_dim=8, num_classes=4,
+                                  seed=3)
+        labels = core.leiden_fusion(ds.graph, K, alpha=0.3)
+        batch = core.build_partition_batch(ds.graph, labels, scheme="repli")
+        halo = core.build_halo_exchange(ds.graph, labels, batch)
+        with np.load(os.path.join(out_dir, "init.npz")) as z:
+            init = [z["p%%d" %% i] for i in range(len(z.files))]
+
+        def cfg(dropout=0.0):
+            return GNNConfig(kind="gcn", feature_dim=8, hidden_dim=16,
+                             embed_dim=16, num_layers=2, dropout=dropout)
+
+        def params():
+            it = iter(init)
+            template = init_partition_models(cfg(), ds.num_classes, K,
+                                             torch.Generator(), "cpu")
+            return params_from_jax(tree_map(lambda _: next(it), template),
+                                   "cpu")
+        common = dict(lr=LR, seed=0, device="cpu", mesh=mesh)
+        runs = {
+            "local": lambda: train_local(ds, batch, cfg(), params=params(),
+                                         epochs=LOCAL_EPOCHS, **common),
+            "sync": lambda: train_sync(ds, batch, halo, cfg(),
+                                       params=params(), epochs=EPOCHS,
+                                       capture=False, **common),
+            "stale": lambda: train_stale(ds, batch, halo, cfg(),
+                                         params=params(), epochs=EPOCHS,
+                                         sync_period=PERIOD, capture=False,
+                                         **common),
+            "model_avg": lambda: train_local(
+                ds, batch, cfg(), params=params(), epochs=LOCAL_EPOCHS,
+                integrate="model_avg", **common),
+            "ensemble": lambda: train_local(
+                ds, batch, cfg(), params=params(), epochs=LOCAL_EPOCHS,
+                integrate="ensemble", **common),
+            "sync_dropout": lambda: train_sync(
+                ds, batch, halo, cfg(0.3), params=params(),
+                epochs=LOCAL_EPOCHS, capture=False, **common)}
+        out = {}
+        for name, run in runs.items():
+            r = run()
+            out[name + "_losses"] = r.losses
+            out[name + "_table"] = r.embeddings.numpy()
+            for i, x in enumerate(tree_leaves(r.params)):
+                out["%%s_p_%%d" %% (name, i)] = x.numpy()
+            out[name + "_counted"] = np.array(json.dumps(r.collectives))
+        np.savez(os.path.join(out_dir, "rank%%d.npz" %% dist.get_rank()),
+                 **out)
+    finally:
+        dist.destroy_process_group()
+""") % (K, EPOCHS, LR, PERIOD, LOCAL_EPOCHS)
+DIST_RUNS = ("local", "sync", "stale", "model_avg", "ensemble",
+             "sync_dropout")
+# model_avg's all-reduce sums in gloo's order, the stacked mean in its own:
+# the averaged parameters differ by an f32 rounding
+AVG_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    """Every rank's results of :data:`RANKS`: 4 gloo ranks started once,
+    each in its own subprocess (own ``env=``, one thread), meeting through
+    a FileStore, every one killed at the end whatever happened."""
+    d = tmp_path_factory.mktemp("ranks")
+    np.savez(d / "init.npz", **{f"p{i}": reference[f"gcn_init_{i}"]
+                                for i in range(6)})
+    procs = []
+    try:
+        for r in range(K):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(K),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(K),
+                       OMP_NUM_THREADS="1",
+                       PYTHONPATH=os.path.join(ROOT, "src"))
+            for name in ("MASTER_ADDR", "MASTER_PORT"):
+                env.pop(name, None)
+            with open(d / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", RANKS, str(d)], env=env,
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, \
+            f"rank {r}: {(d / f'rank{r}.log').read_text()[-4000:]}"
+    data = []
+    for r in range(K):
+        with np.load(d / f"rank{r}.npz") as z:
+            data.append({n: z[n] for n in z.files})
+    for rank in data:
+        for name in DIST_RUNS:
+            rank[name + "_counted"] = json.loads(str(rank[name +
+                                                          "_counted"]))
+    return data
+
+
+@pytest.fixture(scope="module")
+def in_process(graph, reference):
+    """The port's one-process runs of :data:`RANKS`' cases."""
+    ds, batch, halo = graph
+    common = dict(lr=LR, seed=0, device="cpu")
+    init = functools.partial(_init, reference, "gcn")
+    return {
+        "local": train_local(ds, batch, _cfg("gcn"), params=init(),
+                             epochs=LOCAL_EPOCHS, **common),
+        "sync": train_sync(ds, batch, halo, _cfg("gcn"), params=init(),
+                           epochs=EPOCHS, **common),
+        "stale": train_stale(ds, batch, halo, _cfg("gcn"), params=init(),
+                             epochs=EPOCHS, sync_period=PERIOD, **common),
+        "model_avg": train_local(ds, batch, _cfg("gcn"), params=init(),
+                                 epochs=LOCAL_EPOCHS, integrate="model_avg",
+                                 **common),
+        "ensemble": train_local(ds, batch, _cfg("gcn"), params=init(),
+                                epochs=LOCAL_EPOCHS, integrate="ensemble",
+                                **common),
+        "sync_dropout": train_sync(ds, batch, halo, _cfg("gcn", dropout=0.3),
+                                   params=init(), epochs=LOCAL_EPOCHS,
+                                   **common)}
+
+
+@pytest.mark.parametrize("name", DIST_RUNS)
+def test_distributed_equals_in_process(ranks, in_process, name):
+    """Rank r trains partition r as the one-process run trains it: the
+    losses (rank r's column), the gathered parameters and the pooled table
+    on every rank are bitwise the one-process run's (``model_avg``: within
+    ``AVG_TOL``, the all-reduce's rounding)."""
+    run = in_process[name]
+    losses = np.concatenate([r[name + "_losses"] for r in ranks], axis=1)
+    assert np.array_equal(losses, run.losses)
+    want = [x.numpy() for x in tree_leaves(run.params)]
+    for rank in ranks:
+        got = [rank[f"{name}_p_{i}"] for i in range(len(want))]
+        table = rank[name + "_table"]
+        if name == "model_avg":
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b, **AVG_TOL)
+            np.testing.assert_allclose(table, run.embeddings.numpy(),
+                                       **AVG_TOL)
+        else:
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+            assert np.array_equal(table, run.embeddings.numpy())
+
+
+@pytest.mark.parametrize("mode", ["sync", "stale"])
+def test_distributed_matches_reference(ranks, reference, mode):
+    """Against the reference's 4-device runs: losses at ``LOSS_TOL``, the
+    pooled table at ``TABLE_TOL``, and each exchange step's counted bytes
+    exactly its compiled step's HLO count."""
+    losses = np.concatenate([r[mode + "_losses"] for r in ranks], axis=1)
+    np.testing.assert_allclose(losses, reference[f"gcn_2_{mode}_losses"],
+                               **LOSS_TOL)
+    hlo = reference["dicts"][f"gcn_2_{mode}"]
+    on = set(stale_exchange_epochs(EPOCHS, PERIOD if mode == "stale"
+                                   else 1))
+    for rank in ranks:
+        np.testing.assert_allclose(rank[mode + "_table"],
+                                   reference[f"gcn_2_{mode}_table"],
+                                   **TABLE_TOL)
+        for e, step in enumerate(rank[mode + "_counted"]["steps"]):
+            assert step == ({key: hlo[key] for key in step} if e in on
+                            else dict.fromkeys(step, 0)), (e, step)
+
+
+def test_distributed_local_matches_reference_unsharded(ranks, reference):
+    """The local run under a 4-rank mesh against the reference's unsharded
+    local run (its sharded one fails under this jax): losses at
+    ``LOSS_TOL``, parameters at ``STEP_TOL`` after 3 steps, the table at
+    ``TABLE_TOL``."""
+    losses = np.concatenate([r["local_losses"] for r in ranks], axis=1)
+    np.testing.assert_allclose(losses, reference["gcn_2_local_losses"],
+                               **LOSS_TOL)
+    for rank in ranks:
+        for i in range(6):
+            np.testing.assert_allclose(rank[f"local_p_{i}"],
+                                       reference[f"gcn_2_local_p_{i}"],
+                                       **STEP_TOL)
+        np.testing.assert_allclose(rank["local_table"],
+                                   reference["gcn_2_local_table"],
+                                   **TABLE_TOL)
+
+
+@pytest.mark.parametrize("name", DIST_RUNS)
+def test_distributed_counted_bytes(ranks, graph, name):
+    """Per rank and step, the counted bytes are
+    :func:`exchange_collective_bytes`' (the sync step's on exchange
+    epochs); local steps and stale's between-exchange steps count 0; the
+    table and the models move outside any step."""
+    _, _, halo = graph
+    mode = {"stale": "stale", "local": "local", "model_avg": "local",
+            "ensemble": "local"}.get(name, "sync")
+    epochs = EPOCHS if name in ("sync", "stale") else LOCAL_EPOCHS
+    live = exchange_collective_bytes(_cfg("gcn"), halo, K, "sync")
+    on = (range(epochs) if mode == "sync" else
+          stale_exchange_epochs(epochs, PERIOD) if mode == "stale" else [])
+    for rank in ranks:
+        counted = rank[name + "_counted"]
+        steps = counted["steps"]
+        assert [s["total"] for s in steps] == [
+            live["total"] if e in on else 0 for e in range(epochs)]
+        assert all(s["n_reduce-scatter"] == (1 if e in on else 0)
+                   for e, s in enumerate(steps))
+        phases = counted["phases"]
+        assert phases["training steps"]["total"] == live["total"] * len(on)
+        assert phases["embedding gather"]["total"] > 0
+        assert phases["integration"]["n_" + (
+            "all-reduce" if name == "model_avg" else "all-gather")] == 1
 
 
 # -- the halo plan ----------------------------------------------------------
